@@ -550,14 +550,17 @@ def swarm_serving(n: int = 8, ticks: int = 260, base_port: int = 47090,
                   rate_hz: float = 66.6, spacing: float = 0.6,
                   z: float = 0.4, lockstep: bool = True,
                   use_fused: bool | None = None):
-    """The multi-drone server, TPU-natively ONE solve: N cascade-plant
+    """The multi-drone server as ONE batched solve: N cascade-plant
     vehicles behind the link, a single `rti_step_batched` launch per
     tick with per-vehicle formation references, cmd_vel fanned out per
     vehicle, telemetry returning into a batched estimator, per-vehicle
     deadline accounting (crazyflie_server.cpp:155,1108-1131 — the
     reference runs one NMPC node per drone; here the vehicle axis is
-    the batch axis).  See runtime/swarm.py."""
-    if use_fused is not True:      # explicit True = run on the device
+    the batch axis).  See runtime/swarm.py.
+
+    use_fused: None lets SwarmNMPC choose (the batched path on a GPU);
+    False runs the vmapped path on the CPU backend."""
+    if use_fused is False:
         _jax_cpu()
     import contextlib
 

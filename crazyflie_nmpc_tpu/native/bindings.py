@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes as ct
+import hashlib
 import os
 import subprocess
 import threading
@@ -10,24 +11,39 @@ import threading
 import numpy as np
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libcfl.so")
+# built artifacts live outside the package, in the checkout's gitignored
+# build/ directory, named by the sources' content hash
+_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "build", "native")
+_SOURCES = ("crtp.cc", "link_server.cc", "crtp.h", "ring.h")
 _BUILD_LOCK = threading.Lock()
 _LIB = None
 
 
+def _compile_cmd(out: str) -> list:
+    srcs = [os.path.join(_SRC_DIR, f) for f in _SOURCES if f.endswith(".cc")]
+    return ["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-pthread",
+            "-Wall", "-o", out] + srcs
+
+
 def build_library(force: bool = False) -> str:
-    """Compile the native library with g++ (cached by mtime)."""
-    srcs = [os.path.join(_SRC_DIR, f)
-            for f in ("crtp.cc", "link_server.cc")]
-    hdrs = [os.path.join(_SRC_DIR, f) for f in ("crtp.h", "ring.h")]
-    newest_src = max(os.path.getmtime(p) for p in srcs + hdrs)
-    if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= newest_src):
-        return _LIB_PATH
-    cmd = ["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-pthread",
-           "-Wall", "-o", _LIB_PATH] + srcs
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return _LIB_PATH
+    """Compile the native library with g++ into build/native/, keyed on
+    the content of its sources and the compile command: an unchanged
+    tree reuses the library, any edit builds a new one."""
+    h = hashlib.sha256(" ".join(_compile_cmd("")).encode())
+    for f in _SOURCES:
+        with open(os.path.join(_SRC_DIR, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    path = os.path.join(_BUILD_DIR, f"libcfl-{h.hexdigest()[:16]}.so")
+    if not force and os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    subprocess.run(_compile_cmd(tmp), check=True, capture_output=True,
+                   text=True)
+    os.replace(tmp, path)          # atomic: concurrent builders never see
+    return path                    # a half-written library
 
 
 def load_library() -> ct.CDLL:

@@ -235,7 +235,7 @@ class FlyingFirmwareSim(FirmwareSim):
 
         self._jx = jax
         # vehicle physics always runs on the HOST backend: in a process
-        # whose default device is a (possibly tunneled) TPU, the swarm's
+        # whose default device is an accelerator, the swarm's
         # batched solve belongs there but N simulated plants do not —
         # each would pay the host<->device round trip per tick
         self._cpu = jax.local_devices(backend="cpu")[0]

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
 from crazyflie_nmpc_tpu.ops.qp import QPData
 
 
@@ -44,6 +45,7 @@ class BlockMaps(NamedTuple):
     h: jax.Array
 
 
+@highest_precision
 def _condense_block(A, B, c, Qxx, qx, Ruu, ru, S):
     """Condense one block of b stages. Inputs are (b, ...) stage-stacked."""
     b, nx, nu = B.shape[0], B.shape[1], B.shape[2]
@@ -107,6 +109,7 @@ def _condense_block(A, B, c, Qxx, qx, Ruu, ru, S):
             Phis, Gammas, hs)
 
 
+@highest_precision
 def condense(qp: QPData, block: int):
     """Partially condense `qp` with block size b (must divide N).
 
@@ -139,6 +142,7 @@ def condense(qp: QPData, block: int):
     return reduced, BlockMaps(Phi=Phis, Gamma=Gammas, h=hs)
 
 
+@highest_precision
 def expand(maps: BlockMaps, dx_red: jax.Array, v_red: jax.Array):
     """Recover the full-horizon solution from the reduced one.
 
@@ -163,6 +167,7 @@ def expand(maps: BlockMaps, dx_red: jax.Array, v_red: jax.Array):
     return dx_full, du_full
 
 
+@highest_precision
 def solve_partial(qp: QPData, block: int, config=None):
     """Solve `qp` by partial condensing + structured IPM + expansion.
 

@@ -21,6 +21,8 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
+
 
 def rk4_step(f: Callable, params, x: jax.Array, u: jax.Array, dt) -> jax.Array:
     """One classic 4-stage explicit Runge-Kutta step of xdot = f(params, x, u).
@@ -89,6 +91,7 @@ def rollout(f: Callable, params, x0: jax.Array, u_traj: jax.Array, dt,
     return jnp.concatenate([x0[None, :], xs], axis=0)
 
 
+@highest_precision
 def linearize_trajectory(f: Callable, params, x_traj: jax.Array,
                          u_traj: jax.Array, dt, num_steps: int = 1):
     """Stage-parallel linearization of the discrete dynamics along a trajectory.
@@ -108,6 +111,7 @@ def linearize_trajectory(f: Callable, params, x_traj: jax.Array,
     return jax.vmap(step)(x_traj[:-1], u_traj)
 
 
+@highest_precision
 def step_with_sensitivities_vde(params, x: jax.Array, u: jax.Array, dt):
     """RK4 discrete step + sensitivities via the closed-form matrix VDE.
 
@@ -152,6 +156,7 @@ def step_with_sensitivities_vde(params, x: jax.Array, u: jax.Array, dt):
     return x_next, A, B
 
 
+@highest_precision
 def linearize_trajectory_vde(params, x_traj: jax.Array, u_traj: jax.Array,
                              dt):
     """`linearize_trajectory` on the closed-form VDE (num_steps=1 path)."""

@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 
 from crazyflie_nmpc_tpu.ops import riccati
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
 from crazyflie_nmpc_tpu.ops.qp import QPData
 
 
@@ -96,23 +97,6 @@ class IPMConfig:
                                                metadata=dict(static=True))
     escalate_capacity: int = dataclasses.field(default=0,
                                                metadata=dict(static=True))
-    # Compressed (bf16) HBM streams for the fused condensed kernels
-    # (`ipm_fast.solve_batched` condense=2 in-VMEM path ONLY; ignored by
-    # `ops.ipm.solve`, the windowed long-horizon kernels, and the
-    # escalation re-solve, which stays full-precision so certified
-    # operating points keep their exact cleanup pass).  The round-4
-    # speed-of-light study measured both iteration kernels bandwidth-
-    # floor-bound — "fewer bytes is the only lever" (docs/PERF.md):
-    #   compress_gains: K/L/Pc written bf16 by the kkt sweep, re-read
-    #     bf16 by the corrector.  QP data stays exact; the corrector
-    #     direction becomes an inexact-Newton refinement.
-    #   compress_ab: the condensed Abar/Bbar/cbar stage stream stored
-    #     bf16 (Abar deviation-coded as Abar − I).  This perturbs the
-    #     QP itself — accuracy adjudication tables in docs/PERF.md.
-    compress_gains: bool = dataclasses.field(default=False,
-                                             metadata=dict(static=True))
-    compress_ab: bool = dataclasses.field(default=False,
-                                          metadata=dict(static=True))
 
 
 def certified_config(capacity: int = 0) -> IPMConfig:
@@ -122,15 +106,13 @@ def certified_config(capacity: int = 0) -> IPMConfig:
     1.5 m bang-bang transient (tools/bangbang_cert.py).
 
     Why this is the default and plain iters-8 is not: the flight-
-    relevance study (tools/default_iters_flightcheck.py, table in
-    docs/PERF.md) measured the plain default's unconverged active-set-
+    relevance study (tools/default_iters_flightcheck.py) measured the plain default's unconverged active-set-
     discovery ticks causing up to 0.21 m of closed-loop trajectory
     divergence and +7% LQ cost on the 1.5 m transient — not flight-
     irrelevant.  Escalation is mu-gated (escalate_mu_tol), so converged
     ticks pay nothing: `solve` guards the re-solve with lax.cond;
     `ipm_fast.solve_batched` cond-skips the gathered sub-solve unless a
-    lane is unconverged (worst-case cost measured in bench.py:
-    171.3k solves/s vs 329.7k unescalated at B=4096).
+    lane is unconverged (worst-case cost: bench.py "certified").
 
     capacity: escalation sub-batch size for the batched kernel path
     (ipm_fast) — pass the lane count (or the expected number of
@@ -151,6 +133,7 @@ def _max_step(v, dv, tau):
     return jnp.minimum(1.0, tau * jnp.min(ratio))
 
 
+@highest_precision
 def init_state(qp: QPData, config: IPMConfig = IPMConfig(),
                lam0_l=None, lam0_u=None):
     """Initial IPM iterate + affine KKT residuals (z = 0 start).
@@ -198,6 +181,7 @@ def init_state(qp: QPData, config: IPMConfig = IPMConfig(),
     return (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3, r4)
 
 
+@highest_precision
 def iterate(qp: QPData, config: IPMConfig, carry):
     """One Mehrotra predictor-corrector iteration on the carried state."""
     (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3, r4) = carry
@@ -342,6 +326,7 @@ def iterate(qp: QPData, config: IPMConfig, carry):
     return carry, (alpha, mu)
 
 
+@highest_precision
 def solve(qp: QPData, config: IPMConfig = IPMConfig(),
           lam0_l=None, lam0_u=None) -> IPMSolution:
     """Solve the box-constrained multistage QP.

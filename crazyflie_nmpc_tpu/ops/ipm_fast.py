@@ -1,34 +1,34 @@
-"""Batch-last interior-point solver on fused Pallas Riccati kernels.
+"""Batch-last interior-point solver for many independent QPs.
 
 Same algorithm as `ops.ipm` (Mehrotra predictor-corrector with exact
 (1-alpha) affine-residual tracking — see that module for the math), but
-organized for TPU throughput:
+organized for throughput over a batch:
 
-  * all problem data is batch-LAST ((N, n, m, B)); the B axis rides the
-    VPU lanes,
-  * the three Riccati passes per iteration are single fused kernel
-    launches (`ops.pallas.riccati_kernels`) instead of 50-step XLA scans,
+  * all problem data is batch-LAST ((N, n, m, B)); every matrix entry is
+    a (B,) lane vector,
+  * the two Riccati sweeps per iteration (factorization + rollout, then
+    the corrector) run either as `lax.scan` recursions (`ops.sweeps`) or,
+    on the block-2 condensed problem on a GPU, as one hand-written kernel
+    launch each (`ops.pallas.sweep_kernel`); `ops.backend` decides,
   * per-problem scalars (mu, step lengths) are (B,) lane vectors,
-  * the elementwise barrier algebra between kernels stays in XLA, which
-    fuses it into a handful of VPU kernels.
+  * the elementwise barrier algebra between sweeps stays in XLA, which
+    fuses it into a handful of kernels.
 
 `solve_batched` consumes a batch-last QP dict; `from_qpdata` converts a
-vmapped (batch-first) QPData.  Tested for exact agreement with `ops.ipm`
-in tests/test_pallas_kernels.py.
+vmapped (batch-first) QPData.  Tested for agreement with `ops.ipm` in
+tests/test_pallas_kernels.py.
 """
 
 from __future__ import annotations
 
-import functools as _ft
-import warnings
 from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
 
+from crazyflie_nmpc_tpu.ops import sweeps
+from crazyflie_nmpc_tpu.ops.backend import resolve_sweep
 from crazyflie_nmpc_tpu.ops.ipm import IPMConfig
-from crazyflie_nmpc_tpu.ops.pallas import condensed_kernels as ck
-from crazyflie_nmpc_tpu.ops.pallas import riccati_kernels as rk
 from crazyflie_nmpc_tpu.ops.qp import QPData
 
 
@@ -43,7 +43,7 @@ class BatchSolution(NamedTuple):
 def from_qpdata(qp: QPData) -> dict:
     """Vmapped (batch-first) QPData -> batch-last array dict.
 
-    The fused kernels exploit the reference cost structure: Qxx/Ruu/P
+    The batched solver exploits the reference cost structure: Qxx/Ruu/P
     diagonal, S = 0 (LLS cost with selector Vx/Vu, generate_c_code.py:
     86-107).  Only the diagonals are extracted — callers with genuinely
     dense cost blocks must use `ops.ipm` instead.
@@ -63,72 +63,9 @@ def _max_step_lane(v, dv, tau):
     return jnp.minimum(1.0, tau * jnp.min(ratio, axis=(0, 1)))
 
 
-def _c2_vmem_clamp(M: int, block_b: int, stages_per_step: int,
-                   window: int = 2400, gain: int = 150):
-    """Clamp stages_per_step so the fused condensed kernels fit scoped VMEM
-    (~16 MB on v5e); raise past the horizon envelope.
-
-    The c2 sweeps park the whole-horizon gains in VMEM scratch
-    (K_all (M,8,13,bb) + kff_all (M,8,bb), condensed_kernels.py), so the
-    footprint has an M-term independent of the stage blocking:
-
-        bytes ~ 4*bb*(WINDOW*ms + GAIN*M)
-
-    WINDOW ~ 2400 padded floats per stage-pair of double-buffered grid
-    window (in+out blocks, 13->16 sublane padding), GAIN ~ 150 padded
-    floats per stage-pair of gain scratch.  Constants are calibrated
-    against measured points on a v5e (N=200/ms=10/bb=128 OOMs at 16.45M;
-    N=200/ms=4 runs at 20.9 ms; N=200/ms=5 ~ 13.8M compiles but hits a 3x
-    Mosaic spill cliff), hence the conservative 12.7 MB budget.  Only ms
-    shrinks — the Pallas TPU lowering needs the lane (batch) block >= 128,
-    so bb is not a lever — and it shrinks along divisors of M (the kernels
-    round non-divisors down anyway).  Beyond the envelope (M too large for
-    ms=1) the fused path cannot run: callers should drop to condense=1 /
-    ops.ipm or shard the horizon (parallel.stage_sharded_rti_step).
-    """
-    WINDOW, GAIN = window, gain
-    BUDGET = int(12.7 * 1024 * 1024)  # admits N=200/ms=4, rejects ms=5
-
-    def fits(ms):
-        return 4 * block_b * (WINDOW * ms + GAIN * M) <= BUDGET
-
-    ms = max(1, stages_per_step)
-    while ms > 1 and (M % ms != 0 or not fits(ms)):
-        ms -= 1
-    if not fits(ms):
-        raise ValueError(
-            f"horizon too long for the fused condensed kernel: the O(M) "
-            f"gain scratch (M={M} condensed stages, block_b={block_b}) "
-            f"exceeds the VMEM envelope even at one stage per grid step. "
-            f"Use condense=1, ops.ipm, or shard the horizon "
-            f"(parallel.stage_sharded_rti_step).")
-    return ms
-
-
-def _c2_win_clamp(M: int, block_b: int, stages_per_step: int):
-    """Stage blocking for the WINDOWED c2 sweeps: VMEM is O(ms) only (the
-    gains stream through HBM), so the clamp is just the per-grid-step
-    window against the same 12.7 MB budget used by `_c2_vmem_clamp`."""
-    BUDGET = int(12.7 * 1024 * 1024)
-    WINDOW = 2400  # padded floats per stage-pair of grid window
-
-    def fits(ms):
-        return 4 * block_b * WINDOW * ms <= BUDGET
-
-    ms = max(1, stages_per_step)
-    while ms > 1 and (M % ms != 0 or not fits(ms)):
-        ms -= 1
-    return ms
-
-
 def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
-                  block_b: int = 128, stages_per_step: int = 1,
-                  interpret: bool = False,
-                  fused: bool = True,
-                  lam0_l=None, lam0_u=None,
-                  condense: int = 1,
-                  fused_iter: bool = False,
-                  windowed: bool | None = None) -> BatchSolution:
+                  lam0_l=None, lam0_u=None, condense: int = 1,
+                  sweep: str | None = None) -> BatchSolution:
     """Solve a batch of box-constrained multistage QPs (batch-last layout,
     diagonal cost — see `from_qpdata`).
 
@@ -139,8 +76,13 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     (the reference's own QP-backend structure, PARTIAL_CONDENSING_HPIPM,
     generate_c_code.py:140): stage pairs are condensed into M = N/2 dense
     stages with stacked 8-dim inputs (exact reparametrization — bounds ride
-    the unchanged inputs), halving the sequential Riccati depth and cutting
-    factorization FLOPs ~28%/stage.  Requires fused=True and even N.
+    the unchanged inputs), halving the sequential Riccati depth.  Requires
+    even N.
+
+    sweep: how the condensed Riccati sweeps run — "kernel" (the GPU sweep
+    kernel), "plain" (`lax.scan`) or "interpret" (the kernel in the Pallas
+    interpreter, for CPU tests); None lets `ops.backend.sweep_backend`
+    decide from the platform.  condense=1 always runs the plain sweeps.
 
     Per-lane adaptive escalation (config.escalate_iters > 0 AND
     escalate_capacity > 0): the worst `escalate_capacity` lanes by final
@@ -153,27 +95,14 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     iteration-starved saturating lanes converge to the exact active-set
     solution (tests/test_certification.py).  stats gains `escalated`
     (number of re-solved lanes).
-
-    windowed (condense=2 only): None (default) auto-selects — the fused
-    two-phase sweeps inside the VMEM envelope, the HBM-windowed split
-    launches (`kkt_sweep_c2_win`) past it, so ANY horizon that fits HBM
-    runs single-chip.  The auto-selection ALSO reroutes in-envelope
-    configs to the windowed kernels when the VMEM clamp would shrink the
-    stage blocking below the windowed one (measured faster; a one-time
-    warning reports the switch).  True forces the windowed path (for
-    testing / measurement); False pins the in-VMEM behavior — use it to
-    bisect a compiled-path regression against the auto heuristic.
-    stats gains `c2_windowed` (0/1).
     """
-    sol = _solve_core(qp, config, block_b, stages_per_step, interpret,
-                      fused, lam0_l, lam0_u, condense, fused_iter,
-                      windowed)
+    sweep = resolve_sweep(sweep)
+    sol = _solve_core(qp, config, lam0_l, lam0_u, condense, sweep)
     cap = config.escalate_capacity
     if config.escalate_iters <= 0 or cap <= 0:
         return sol
     B = qp["c"].shape[-1]
     cap = min(cap, B)
-    sub_bb = min(block_b, cap)
     esc_cfg = IPMConfig(
         iters=config.escalate_iters, tau=config.tau, reg=config.reg,
         s_min_init=config.s_min_init, mu0_init=config.mu0_init)
@@ -190,9 +119,7 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
 
     def escalate(_):
         sub_qp = {k: v[..., idx] for k, v in qp.items()}
-        sub = _solve_core(sub_qp, esc_cfg, sub_bb, stages_per_step,
-                          interpret, fused, None, None, condense,
-                          windowed=windowed)
+        sub = _solve_core(sub_qp, esc_cfg, None, None, condense, sweep)
         stats = dict(sol.stats)
         for k in ("mu", "res_stat", "res_eq"):
             stats[k] = scat(stats[k], sub.stats[k])
@@ -213,18 +140,12 @@ def solve_batched(qp: dict, config: IPMConfig = IPMConfig(),
     return jax.lax.cond(jnp.any(bad), escalate, keep, None)
 
 
-def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
-                block_b: int = 128, stages_per_step: int = 1,
-                interpret: bool = False,
-                fused: bool = True,
-                lam0_l=None, lam0_u=None,
-                condense: int = 1,
-                fused_iter: bool = False,
-                windowed: bool | None = None) -> BatchSolution:
-    # precondensed input (rti_step_batched's fused prep+condense launch,
-    # prep_kernel.prep_condense2): the condensed arrays arrive under
-    # "c2*" keys and the full-horizon A/B were never materialized —
-    # A/B/qxx/qx/ru are absent, Ae/Be carry the even-stage expansion data
+def _solve_core(qp: dict, config: IPMConfig, lam0_l, lam0_u,
+                condense: int, sweep: str) -> BatchSolution:
+    # precondensed input (rti_step_batched's prep_condense2 path): the
+    # condensed arrays arrive under "c2*" keys and the full-horizon A/B
+    # were never materialized — A/B/qxx/qx/ru are absent, Ae/Be carry the
+    # even-stage expansion data
     precond = "c2Abar" in qp
     A, Bm = qp.get("A"), qp.get("B")
     c = qp["c"]
@@ -235,143 +156,67 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
     nx = c.shape[1]
     dtype = c.dtype
 
-    kern = dict(block_b=block_b, stages_per_step=stages_per_step,
-                interpret=interpret)
-
     if precond and condense != 2:
         raise ValueError("precondensed (c2*) QP data requires condense=2")
-    if condense == 2:
-        if not fused:
-            raise ValueError("condense=2 requires the fused kernel path")
+    cond2 = condense == 2
+    if cond2:
         M = N // 2
-        # clamp the c2 sweeps' stage blocking to the VMEM envelope BEFORE
-        # any condensing work runs (the check needs only static shapes).
-        # Interpret mode has no scoped-VMEM limit — honor the request.
-        ms_req = max(1, stages_per_step // 2)
-        use_iter = fused_iter and fused and config.gondzio_correctors == 0
-        clamp_kw = dict(window=2600, gain=240) if use_iter else {}
-        use_win = bool(windowed)
-        if interpret and windowed is None:
-            ms_c2 = ms_req
-        elif use_win:
-            ms_c2 = ms_req if interpret else _c2_win_clamp(M, block_b,
-                                                           ms_req)
-        else:
-            try:
-                ms_c2 = _c2_vmem_clamp(M, block_b, ms_req, **clamp_kw)
-            except ValueError:
-                if windowed is False:
-                    raise
-                # past the fused envelope: fall back to the HBM-windowed
-                # split launches — O(ms) VMEM, any HBM-sized horizon runs
-                # single-chip (gains round-trip through HBM; measured
-                # 1.04x the flat per-stage line at N=400 and FLAT through
-                # N=1600, docs/PERF.md horizon table)
-                use_win = True
-                ms_c2 = _c2_win_clamp(M, block_b, ms_req)
-            else:
-                if windowed is None and not use_iter:
-                    # inside the envelope but clamped below the windowed
-                    # blocking: the larger stage block through HBM beats
-                    # the shrunken in-VMEM one (measured: N=256 windowed
-                    # ms=4 runs 17.65 vs clamped ms=2 at 19.33 per-50;
-                    # equal blocking -> in-VMEM wins, keep it)
-                    ms_win = _c2_win_clamp(M, block_b, ms_req)
-                    if ms_c2 < ms_win:
-                        # surface the reroute once (ADVICE r3): the
-                        # default compiled path changes kernel family
-                        # here; windowed=False pins the in-VMEM kernels
-                        warnings.warn(
-                            f"fused c2 sweeps: auto-selected HBM-windowed "
-                            f"kernels (in-VMEM clamp {ms_c2} < windowed "
-                            f"blocking {ms_win} stages; M={M}, "
-                            f"block_b={block_b}); pass windowed=False to "
-                            f"pin the in-VMEM path",
-                            stacklevel=2)
-                        use_win = True
-                        ms_c2 = ms_win
-            if not use_win and ms_c2 < ms_req:
-                # surface the reduction: a config validated in interpret
-                # mode (no clamp) can silently run with smaller blocking
-                # here — identical results, different performance envelope
-                warnings.warn(
-                    f"fused c2 sweeps: stage blocking clamped "
-                    f"{ms_req} -> {ms_c2} to fit the VMEM envelope "
-                    f"(M={M} condensed stages, block_b={block_b}); also "
-                    f"reported in stats['c2_stages_per_step']",
-                    stacklevel=2)
-        if use_win and use_iter:
-            raise ValueError("fused_iter=True requires the in-VMEM fused "
-                             "c2 sweeps; the horizon is past their "
-                             "envelope (use fused_iter=False)")
         if precond:
             cnd = {k[2:]: qp[k] for k in
                    ("c2Abar", "c2Bbar", "c2cbar", "c2Qbar", "c2S1T",
                     "c2R00", "c2qbar", "c2rbar")}
-            exp_A, exp_B, exp_even = qp["c2Ae"], qp["c2Be"], True
+            exp_A, exp_B = qp["c2Ae"], qp["c2Be"]
         else:
-            cnd = ck.condense2(A, Bm, c, qxx, qx, ru, block_b=block_b,
-                               interpret=interpret)
-            exp_A, exp_B, exp_even = A, Bm, False
+            cnd = sweeps.condense2(A, Bm, c, qxx, qx, ru)
+            exp_A, exp_B = A[0::2], Bm[0::2]
         # bounds / slacks / duals are per ORIGINAL input; stage-major
         # layout makes the condensed stacking a pure reshape
-        resh = lambda z: z.reshape(M, 2 * nu, B)
+        nuc = 2 * nu
+        resh = lambda z: z.reshape(M, nuc, B)
         qp = dict(qp)
         qp["lb"], qp["ub"] = resh(qp["lb"]), resh(qp["ub"])
         if lam0_l is not None:
             lam0_l, lam0_u = resh(lam0_l), resh(lam0_u)
-        ruu_c = resh(ruu)
         N_orig, nu_orig = N, nu
         c_orig = c
-        N, nu = M, 2 * nu
+        N, nu = M, nuc
         ru = cnd["rbar"]
         qx = cnd["qbar"]
         c = cnd["cbar"]
-        ruu = ruu_c
-        Abar, Bbar = cnd["Abar"], cnd["Bbar"]
-        Qbar, S1T, R00 = cnd["Qbar"], cnd["S1T"], cnd["R00"]
-        # the condensed horizon is half as long: the clamp above keeps
-        # roughly the same stage-block footprint per grid step within the
-        # VMEM envelope — the fused sweeps carry O(M) gain scratch, so
-        # long horizons need smaller stage blocks (N=200 runs at ~5.2 ms
-        # per-50-stages with the clamp; unclamped it VMEM-OOMs)
-        kern["stages_per_step"] = ms_c2
-    cond2 = condense == 2
-    comp_g = comp_ab = False
-    if cond2:
-        # compressed bf16 HBM streams (IPMConfig docstring; measured
-        # tables in docs/PERF.md round 5): supported on the in-VMEM fused
-        # two-launch path only — the path the bandwidth-floor study
-        # covers.  The windowed long-horizon kernels and the fused-iter
-        # mega-kernel run full-precision.
-        comp_g = bool(config.compress_gains)
-        comp_ab = bool(config.compress_ab)
-        if (comp_g or comp_ab) and use_iter:
-            raise ValueError("compress_gains/compress_ab are not "
-                             "supported with fused_iter=True (gains "
-                             "never leave VMEM there)")
-        if (comp_g or comp_ab) and use_win:
-            warnings.warn(
-                "compress_gains/compress_ab ignored: the horizon "
-                "selected the HBM-windowed c2 kernels, which run "
-                "full-precision", stacklevel=2)
-            comp_g = comp_ab = False
-        if use_win:
-            kkt_c2 = ck.kkt_sweep_c2_win
-            corr_c2 = ck.corrector_sweep_c2_win
+        ruu = resh(ruu)
+        Abar, Bbar, Qbar = cnd["Abar"], cnd["Bbar"], cnd["Qbar"]
+        if sweep == "plain":
+            S, R = sweeps.split_condensed_cost(cnd["S1T"], cnd["R00"])
+
+            def kkt(c_, qx_, ruu_, ru_, pt_, dx0_):
+                return sweeps.kkt_sweep(Abar, Bbar, c_, Qbar, S, R, qx_,
+                                        ruu_, ru_, pT_diag, pt_, dx0_)
+
+            def corr(c_, qx_, ru_, K, L, Pc, pt_, dx0_):
+                return sweeps.corrector_sweep(Abar, Bbar, c_, qx_, ru_, K,
+                                              L, Pc, pt_, dx0_)
         else:
-            gdt = jnp.bfloat16 if comp_g else None
-            kkt_c2 = _ft.partial(ck.kkt_sweep_c2, gains_dtype=gdt,
-                                 a_dev=comp_ab)
-            corr_c2 = _ft.partial(ck.corrector_sweep_c2, a_dev=comp_ab)
-        if comp_ab:
-            # deviation-coded A: bf16 rounding lands on the O(dt*J)
-            # deviation, not the unit diagonal (condensed_kernels note)
-            eye = jnp.eye(nx, dtype=dtype)[None, :, :, None]
-            Abar = (Abar - eye).astype(jnp.bfloat16)
-            Bbar = Bbar.astype(jnp.bfloat16)
-    cstream = ((lambda z: z.astype(jnp.bfloat16)) if comp_ab
-               else (lambda z: z))
+            from crazyflie_nmpc_tpu.ops.pallas import sweep_kernel as sk
+
+            interp = sweep == "interpret"
+            # constant over the solve: padded for the kernel once
+            data = sk.stage_data(Abar, Bbar, Qbar, cnd["S1T"], cnd["R00"])
+
+            def kkt(c_, qx_, ruu_, ru_, pt_, dx0_):
+                return sk.kkt_sweep_c2(data, c_, qx_, ruu_, ru_, pT_diag,
+                                       pt_, dx0_, interpret=interp)
+
+            def corr(c_, qx_, ru_, K, L, Pc, pt_, dx0_):
+                return sk.corrector_sweep_c2(data, c_, qx_, ru_, K, L, Pc,
+                                             pt_, dx0_, interpret=interp)
+    else:
+        def kkt(c_, qx_, ruu_, ru_, pt_, dx0_):
+            return sweeps.kkt_sweep(A, Bm, c_, qxx, None, None, qx_, ruu_,
+                                    ru_, pT_diag, pt_, dx0_)
+
+        def corr(c_, qx_, ru_, K, L, Pc, pt_, dx0_):
+            return sweeps.corrector_sweep(A, Bm, c_, qx_, ru_, K, L, Pc,
+                                          pt_, dx0_)
 
     finite_l = jnp.isfinite(qp["lb"])
     finite_u = jnp.isfinite(qp["ub"])
@@ -420,20 +265,8 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
                 - jnp.where(finite_u, (r5u + lam_u * r4) / s_u, 0.0))
 
         # ---- predictor: factorization + affine backward + forward rollout
-        if cond2:  # dense-cost condensed sweep, one launch
-            K, kff_a, L, Pc, ddx_a, ddu_a = kkt_c2(
-                Abar, Bbar, cstream(-r2[1:]), Qbar, S1T, R00, r1x[:-1],
-                ruu_shift, rt1u, pT_diag, r1x[-1], -r2[0], **kern)
-        elif fused:  # one kernel launch
-            K, kff_a, L, Pc, ddx_a, ddu_a = rk.kkt_sweep(
-                A, Bm, -r2[1:], qxx, r1x[:-1], ruu_shift, rt1u,
-                pT_diag, r1x[-1], -r2[0], **kern)
-        else:
-            K, kff_a, L, Pc = rk.backward_sweep(
-                A, Bm, -r2[1:], qxx, r1x[:-1], ruu_shift, rt1u,
-                pT_diag, r1x[-1], **kern)
-            ddx_a, ddu_a = rk.forward_sweep(A, Bm, -r2[1:], K, kff_a,
-                                            -r2[0], **kern)
+        K, kff_a, L, Pc, ddx_a, ddu_a = kkt(
+            -r2[1:], r1x[:-1], ruu_shift, rt1u, r1x[-1], -r2[0])
 
         ds_l_a = jnp.where(finite_l, ddu_a + r3, 0.0)
         ds_u_a = jnp.where(finite_u, r4 - ddu_a, 0.0)
@@ -463,19 +296,8 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
         r5u_c = r5u - sigma * mu + ds_u_a * dlam_u_a
         rt1u_c = (r1u + jnp.where(finite_l, (r5l_c + lam_l * r3) / s_l, 0.0)
                   - jnp.where(finite_u, (r5u_c + lam_u * r4) / s_u, 0.0))
-        if cond2:
-            ddx, ddu = corr_c2(
-                Abar, Bbar, cstream(-r2[1:]), r1x[:-1], rt1u_c, K, L, Pc,
-                r1x[-1], -r2[0], **kern)
-        elif fused:
-            ddx, ddu = rk.corrector_sweep(
-                A, Bm, -r2[1:], r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
-                -r2[0], **kern)
-        else:
-            kff_c = rk.backward_vector_sweep(
-                A, Bm, r1x[:-1], rt1u_c, K, L, Pc, r1x[-1], **kern)
-            ddx, ddu = rk.forward_sweep(A, Bm, -r2[1:], K, kff_c, -r2[0],
-                                        **kern)
+        ddx, ddu = corr(-r2[1:], r1x[:-1], rt1u_c, K, L, Pc, r1x[-1],
+                        -r2[0])
 
         ds_l = jnp.where(finite_l, ddu + r3, 0.0)
         ds_u = jnp.where(finite_u, r4 - ddu, 0.0)
@@ -492,7 +314,7 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
                                config.tau)))
 
         # ---- Gondzio multiple centrality correctors (see ops.ipm.iterate
-        # for the math and docs/PERF.md for the accuracy/cost trade): one
+        # for the math and the accuracy/cost trade): one
         # extra corrector sweep each on the SAME factorization, RHS = pure
         # complementarity outlier correction, accepted per lane only where
         # the step lengthens.
@@ -509,7 +331,7 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
                             0.0)
             rt1u_g = (jnp.where(finite_l, -t_l / s_l, 0.0)
                       + jnp.where(finite_u, t_u / s_u, 0.0))
-            z_c = cstream(jnp.zeros_like(r2[1:]))
+            z_c = jnp.zeros_like(r2[1:])
             z_qx = jnp.zeros_like(r1x[:-1])
             z_pt = jnp.zeros_like(r1x[-1])
             z_dx0 = jnp.zeros_like(r2[0])
@@ -519,19 +341,8 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
             # must be zeroed here (K and L stay — they are factorization
             # state, independent of the RHS)
             z_Pc = jnp.zeros_like(Pc)
-            if cond2:
-                ddx_g, ddu_g = corr_c2(
-                    Abar, Bbar, z_c, z_qx, rt1u_g, K, L, z_Pc, z_pt,
-                    z_dx0, **kern)
-            elif fused:
-                ddx_g, ddu_g = rk.corrector_sweep(
-                    A, Bm, z_c, z_qx, rt1u_g, K, L, z_Pc, z_pt, z_dx0,
-                    **kern)
-            else:
-                kff_g = rk.backward_vector_sweep(
-                    A, Bm, z_qx, rt1u_g, K, L, z_Pc, z_pt, **kern)
-                ddx_g, ddu_g = rk.forward_sweep(A, Bm, z_c, K, kff_g,
-                                                z_dx0, **kern)
+            ddx_g, ddu_g = corr(z_c, z_qx, rt1u_g, K, L, z_Pc, z_pt,
+                                z_dx0)
             ds_l_g = jnp.where(finite_l, ddu_g, 0.0)
             ds_u_g = jnp.where(finite_u, -ddu_g, 0.0)
             dlam_l_g = jnp.where(finite_l, (t_l - lam_l * ds_l_g) / s_l,
@@ -571,52 +382,10 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
                  shrink * r3, shrink * r4)
         return carry, (alpha, mu)
 
-    if cond2 and fused_iter and config.gondzio_correctors == 0:
-        # whole-iteration fused kernel: ONE Pallas launch per Mehrotra
-        # iteration (ck.iter_sweep_c2) — all slack/dual/step-length
-        # algebra runs in-kernel, K/L/Pc never leave VMEM.  Parity with
-        # the `iteration` body above is pinned in tests (the reductions
-        # accumulate stage-sequentially instead of in XLA's order, so
-        # agreement is to rounding, exact in f64).  OPT-IN (fused_iter):
-        # measured on v5e the single-launch form runs ~2.5x SLOWER than
-        # the two-launch iteration (the 5-phase window + gain scratch
-        # crosses the Mosaic spill cliff) and compiles pathologically
-        # under XLA loops -- see docs/PERF.md "what did NOT work".
-        m_l = finite_l.astype(dtype)
-        m_u = finite_u.astype(dtype)
-        carry0 = (z_dx[:-1], z_dx[-1], z_du, s_l, s_u, lam_l, lam_u,
-                  r1x[:-1], r1x[-1], r1u, c, qp["dx0"], r3, r4)
-
-        def iteration2(carry, _):
-            (zdxm, zdxT, z_du_, s_l_, s_u_, lam_l_, lam_u_,
-             r1xm, r1xT, r1u_, c_res, dx0_res, r3_, r4_) = carry
-            outs = ck.iter_sweep_c2(
-                Abar, Bbar, c_res, Qbar, S1T, R00, r1xm, ruu, r1u_,
-                s_l_, s_u_, lam_l_, lam_u_, r3_, r4_, m_l, m_u,
-                zdxm, z_du_, pT_diag, r1xT, dx0_res, zdxT,
-                n_ineq, has_ineq, float(config.tau),
-                block_b=block_b,
-                stages_per_step=kern["stages_per_step"],
-                interpret=interpret)
-            (zdxm, z_du_, s_l_, s_u_, lam_l_, lam_u_, r1xm, r1u_,
-             c_res, r3_, r4_, r1xT, dx0_res, zdxT, alpha, mu) = outs
-            carry = (zdxm, zdxT, z_du_, s_l_, s_u_, lam_l_, lam_u_,
-                     r1xm, r1xT, r1u_, c_res, dx0_res, r3_, r4_)
-            return carry, (alpha[0], mu[0])
-
-        carry, (alphas, mus) = jax.lax.scan(iteration2, carry0, None,
-                                            length=config.iters)
-        (zdxm, zdxT, z_du, s_l, s_u, lam_l, lam_u,
-         r1xm, r1xT, r1u, c_res, dx0_res, r3, r4) = carry
-        z_dx = jnp.concatenate([zdxm, zdxT[None]], axis=0)
-        r1x = jnp.concatenate([r1xm, r1xT[None]], axis=0)
-        r2 = jnp.concatenate([-dx0_res[None], -c_res], axis=0)
-    else:
-        carry0 = (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3,
-                  r4)
-        carry, (alphas, mus) = jax.lax.scan(iteration, carry0, None,
-                                            length=config.iters)
-        (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3, r4) = carry
+    carry0 = (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3, r4)
+    carry, (alphas, mus) = jax.lax.scan(iteration, carry0, None,
+                                        length=config.iters)
+    (z_dx, z_du, s_l, s_u, lam_l, lam_u, r1x, r1u, r2, r3, r4) = carry
 
     mu_final = (jnp.sum(lam_l * s_l * finite_l, axis=(0, 1))
                 + jnp.sum(lam_u * s_u * finite_u, axis=(0, 1))) / n_ineq
@@ -627,23 +396,12 @@ def _solve_core(qp: dict, config: IPMConfig = IPMConfig(),
         res_eq=jnp.max(jnp.abs(r2), axis=(0, 1)),
     )
     if cond2:
-        # effective (possibly VMEM-clamped) stage blocking of the c2 sweeps
-        stats["c2_stages_per_step"] = kern["stages_per_step"]
-        stats["c2_windowed"] = int(use_win)
-        # which bf16 stream compressions were ACTUALLY active (they are
-        # dropped on the windowed path — see above)
-        stats["c2_compress_gains"] = int(comp_g)
-        stats["c2_compress_ab"] = int(comp_ab)
-
-    if cond2:
         # expand: interior states were eliminated exactly through their
         # dynamics row; recover them once (not per iteration)
         du_pairs = z_du                                  # (M, 8, B)
         dx_even = z_dx[:-1]                              # (M, 13, B)
-        dx_odd = ck.expand2(exp_A, exp_B, c_orig, dx_even,
-                            du_pairs[:, :nu_orig], block_b=block_b,
-                            stages_per_step=kern["stages_per_step"],
-                            interpret=interpret, even_only=exp_even)
+        dx_odd = sweeps.expand2(exp_A, exp_B, c_orig, dx_even,
+                                du_pairs[:, :nu_orig])
         dx_full = jnp.concatenate([
             jnp.stack([dx_even, dx_odd], axis=1).reshape(
                 N_orig, dx_even.shape[1], B),

@@ -1,5 +1,1 @@
-from crazyflie_nmpc_tpu.ops.pallas.riccati_kernels import (  # noqa: F401
-    backward_sweep,
-    backward_vector_sweep,
-    forward_sweep,
-)
+"""Hand-written GPU kernels (Pallas through Triton)."""

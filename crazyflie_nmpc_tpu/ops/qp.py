@@ -24,6 +24,8 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
+
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +51,7 @@ class QPData:
         return self.A.shape[-3]
 
 
+@highest_precision
 def gauss_newton_cost_blocks(W, Vx, Vu, W_e, Vx_e, x_traj, u_traj,
                              yref, yref_e):
     """Gauss-Newton Hessian/gradient blocks of the linear-least-squares cost.
@@ -91,6 +94,7 @@ def gauss_newton_cost_blocks(W, Vx, Vu, W_e, Vx_e, x_traj, u_traj,
     )
 
 
+@highest_precision
 def build_qp(A, B, x_next_pred, x_traj, u_traj, x0, lbu, ubu, cost_blocks):
     """Assemble the full RTI QP from linearization + cost blocks.
 

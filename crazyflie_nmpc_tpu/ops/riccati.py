@@ -28,6 +28,8 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import cho_factor, cho_solve
 
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
+
 
 class RiccatiFactors(NamedTuple):
     """Horizon-stacked factorization of the LQ problem.
@@ -43,6 +45,7 @@ class RiccatiFactors(NamedTuple):
     Quu_chol: Any
 
 
+@highest_precision
 def factorize(A, B, Qxx, Ruu, S, P_term):
     """Backward Riccati factorization (quadratic terms only).
 
@@ -67,6 +70,7 @@ def factorize(A, B, Qxx, Ruu, S, P_term):
     return RiccatiFactors(P=P_all, K=Ks, Quu_chol=Quu_chols)
 
 
+@highest_precision
 def backward_vector(factors: RiccatiFactors, A, B, qx, ru, c, p_term):
     """Backward pass for the affine terms given an existing factorization.
 
@@ -90,6 +94,7 @@ def backward_vector(factors: RiccatiFactors, A, B, qx, ru, c, p_term):
     return ks, p_all
 
 
+@highest_precision
 def forward_rollout(factors: RiccatiFactors, k_ff, A, B, c, dx0):
     """Forward pass: dx_{k+1} = A dx + B du + c with du = K dx + k."""
     def step(dx, blk):
@@ -103,6 +108,7 @@ def forward_rollout(factors: RiccatiFactors, k_ff, A, B, c, dx0):
     return dx_all, dus
 
 
+@highest_precision
 def solve_lq(A, B, c, Qxx, qx, Ruu, ru, S, P_term, p_term, dx0):
     """One-shot equality-constrained affine-LQ solve.
 

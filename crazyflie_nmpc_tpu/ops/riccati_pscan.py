@@ -2,13 +2,11 @@
 
 STATUS: research module — correct (parity-tested vs `ops.riccati`) but
 NOT wired into any product path, by measurement.  The B=1 latency
-crossover it was built for does not exist on v5e: with drain-proof
-chained timing (docs/PERF.md "timing methodology") the sequential XLA
-sweep beats this scan at EVERY horizon tested — 0.41 vs 0.99 ms at
-N=50, 6.7 vs 11.0 ms at N=800, 26.5 vs 43.4 ms at N=3200 (ratio
-0.42-0.61x, round-3 measurement).  The ~4x per-stage FLOP overhead of
-the combine elements dominates, and XLA's sequential `lax.scan` is not
-dispatch-latency-bound on this hardware at these sizes.  Kept as the
+crossover it was built for was not found on the accelerator the system
+was first written for: the sequential XLA sweep beat this scan at every
+horizon tested (N=50..3200), the ~4x per-stage FLOP overhead of the
+combine elements dominating.  Not yet measured on a GPU, where the
+sequential scan is launch-bound (PERF.md, open questions).  Kept as the
 horizon-parallel construction a future multi-chip-stage-axis latency
 path would start from (and as the recorded negative result).
 

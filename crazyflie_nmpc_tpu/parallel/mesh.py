@@ -16,8 +16,8 @@ def make_mesh(batch: int = 1, stage: int = 1, devices=None) -> Mesh:
 
     batch is the embarrassingly-parallel axis (vmapped solves, BASELINE
     configs 3-5); stage shards the horizon's linearization + condensing
-    (SURVEY.md section 2.6).  On a pod slice, lay batch over DCN/outer rings
-    and stage over the tight ICI neighbors.
+    (SURVEY.md section 2.6).  The cards of one host reach each other all to
+    all at the same rate, so the mesh follows the algorithm alone.
     """
     devices = devices if devices is not None else jax.devices()
     n = batch * stage

@@ -1,18 +1,17 @@
-"""Pod-scale serving: the fused-kernel RTI path sharded over device meshes.
+"""Pod-scale serving: the batched RTI path sharded over device meshes.
 
 BASELINE.json config 5 ("100k+ scenarios sharded across N>=2 hosts"): the
 batch axis is embarrassingly parallel, so the pod path is `shard_map` over
-the mesh's batch axis with each device running the *fused Pallas* RTI step
-(`solver.rti_step_batched`) on its local shard — kernels ride each chip's
-VMEM, nothing crosses ICI during a solve, and only user-requested metric
-reductions (`psum`/`pmax`) communicate.  Multi-host runs initialize with
+the mesh's batch axis with each device running the batched RTI step
+(`solver.rti_step_batched`) on its local shard — nothing crosses devices
+during a solve, and only user-requested metric reductions
+(`psum`/`pmax`) communicate.  Multi-host runs initialize with
 `init_distributed()` (jax.distributed) and shard the global batch over
-(hosts x chips); DCN never sees solver state.
+(hosts x devices); the network never sees solver state.
 
 The horizon axis composes on top via `sharded.stage_sharded_rti_step`
-(collective-reduced partial condensing over STAGE_AXIS) when N is scaled
-past single-chip VMEM — the two axes are the same mesh's dimensions
-(parallel.mesh.make_mesh).
+(collective-reduced partial condensing over STAGE_AXIS) — the two axes are
+the same mesh's dimensions (parallel.mesh.make_mesh).
 """
 
 from __future__ import annotations
@@ -33,8 +32,8 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None):
     """Initialize multi-host JAX (jax.distributed) if not already done.
 
-    On a real pod, TPU runtime env vars make all arguments optional; on a
-    CPU fake cluster pass them explicitly (the standard XLA trick for
+    Pass all three arguments: nothing in the environment describes the
+    cluster (on a CPU fake cluster this is the standard XLA trick for
     testing multi-node without a cluster, SURVEY.md §4).
     """
     try:
@@ -48,31 +47,25 @@ def init_distributed(coordinator: str | None = None,
 
 def pod_rti_step(spec: OCPSpec, mesh,
                  config: ipm.IPMConfig = ipm.IPMConfig(),
-                 block_b: int = 128, stages_per_step: int = 25,
-                 interpret: bool = False, condense: int | None = None):
-    """Jitted pod-wide RTI step on the fused-kernel path.
+                 condense: int | None = None):
+    """Jitted pod-wide batched RTI step.
 
     Returns fn(states, x0s, yref, yref_e) -> (states', outs).  Batch-first
     global arrays, sharded over the mesh's batch axis; yref/yref_e are
     replicated (shared reference) or batch-sharded (per-problem).  Each
-    device runs the Pallas kernels on its local shard; no collectives in
-    the solve itself.
+    device solves its local shard; no collectives in the solve itself.
 
     condense defaults to block-2 partial condensing when the horizon is
-    even (the fastest measured serving configuration; see
-    ops/pallas/condensed_kernels.py).
+    even.
     """
     from jax import shard_map
 
     if condense is None:
         condense = 2 if spec.N % 2 == 0 else 1
-    n_batch_dev = mesh.shape[BATCH_AXIS]
 
     def local_step(states, x0s, yref, yref_e):
         new_states, outs = rti_step_batched(
-            spec, states, x0s, yref, yref_e, config,
-            block_b=block_b, stages_per_step=stages_per_step,
-            interpret=interpret, condense=condense)
+            spec, states, x0s, yref, yref_e, config, condense=condense)
         return new_states, outs
 
     sharded = shard_map(
@@ -89,7 +82,6 @@ def pod_rti_step(spec: OCPSpec, mesh,
         states = jax.lax.with_sharding_constraint(states, batch_sharding)
         return sharded(states, x0s, yref, yref_e)
 
-    del n_batch_dev
     return step
 
 

@@ -27,6 +27,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from crazyflie_nmpc_tpu.models.quadrotor import NU, NX, dynamics
 from crazyflie_nmpc_tpu.ops import condensing, ipm
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
 from crazyflie_nmpc_tpu.ops.integrators import linearize_trajectory
 from crazyflie_nmpc_tpu.ops.qp import build_qp, gauss_newton_cost_blocks
 from crazyflie_nmpc_tpu.parallel.mesh import BATCH_AXIS, STAGE_AXIS
@@ -55,6 +56,7 @@ def batch_sharded_rti(spec: OCPSpec, mesh,
     return step
 
 
+@highest_precision
 def stage_sharded_rti_step(spec: OCPSpec, mesh, block: int,
                            state: RTIState, x0, yref, yref_e,
                            config: ipm.IPMConfig = ipm.IPMConfig()):

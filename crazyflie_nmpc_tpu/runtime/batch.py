@@ -3,8 +3,8 @@
 BASELINE.json configs 3-4: many independent closed loops advanced in
 lockstep — 256-drone swarms (the reference's one-thread-per-drone server
 scaled 100x, crazyflie_server.cpp:1108) and 1k-scenario Monte-Carlo with
-perturbed initial states.  The per-tick controller is the fused-kernel
-batched RTI step, so a whole swarm tick is a handful of kernel launches.
+perturbed initial states.  The per-tick controller is the batched RTI
+step, so a whole swarm tick is a handful of kernel launches.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ class SwarmResult(NamedTuple):
 
 def swarm_hover(spec: OCPSpec, x_inits: jax.Array, setpoints: jax.Array,
                 steps: int, config: ipm.IPMConfig = ipm.IPMConfig(iters=8),
-                plant_substeps: int = 1, block_b: int = 128,
-                interpret: bool = False) -> SwarmResult:
+                plant_substeps: int = 1) -> SwarmResult:
     """Closed-loop regulation for B independent vehicles in lockstep.
 
     Args:
@@ -55,8 +54,7 @@ def swarm_hover(spec: OCPSpec, x_inits: jax.Array, setpoints: jax.Array,
     def tick(carry, _):
         xs, states = carry
         states, out = rti_step_batched(spec, states, xs, yrefs, yref_es,
-                                       config, block_b=block_b,
-                                       interpret=interpret)
+                                       config)
         u = out.u0
         xs_next = jax.vmap(
             lambda x, uu: integrate(dynamics, spec.params, x, uu, spec.dt,

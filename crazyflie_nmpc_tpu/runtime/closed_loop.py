@@ -267,7 +267,7 @@ def cmd_vel_loop(spec: OCPSpec, x_init, setpoint=(0.0, 0.0, 0.5),
     delay_steps - meas_delay_steps ticks (radio + firmware ingest).
     meas_delay_steps=0 (default) is the all-actuation worst case; the
     measured stability envelope over this split is pinned in
-    tests/test_estimator_fidelity.py and tabulated in docs/PERF.md.
+    tests/test_estimator_fidelity.py and swept by tools/firmware_envelope.py.
 
     predictor selects the single-last-command predictor's PLANT MODEL:
       "motvel"  — the reference verbatim: ZOH rotor-level integration

@@ -3,7 +3,7 @@
 The reference's defining server architecture is a multi-drone hub — N
 Crazyflies, one thread + callback queue each, every vehicle running its
 own NMPC node (crazyflie_server.cpp:155,1108-1131; the multi_hover_*
-launch files).  The TPU-native answer inverts that: the batch axis IS the
+launch files).  The batched answer inverts that: the batch axis IS the
 vehicle axis.  Each tick, every vehicle's telemetry (mocap position +
 stabilizer Euler + gyro, the acados_estimator.cpp:452-513 channel set)
 crosses the link into one (B, ·) array, a single `rti_step_batched`
@@ -56,6 +56,7 @@ from crazyflie_nmpc_tpu.models.firmware import (
     AttitudeGains,
     attitude_plant_step,
 )
+from crazyflie_nmpc_tpu.ops.backend import sweep_backend
 from crazyflie_nmpc_tpu.ops.ipm import IPMConfig, certified_config
 from crazyflie_nmpc_tpu.solver.ocp import OCPSpec, hover_yref
 from crazyflie_nmpc_tpu.solver.outputs import krpm2pwm, to_cmd_vel
@@ -74,11 +75,9 @@ class SwarmNMPC:
     def __init__(self, spec: OCPSpec, targets,
                  ipm_config: Optional[IPMConfig] = None,
                  delay_steps: int = 1, use_fused: Optional[bool] = None,
-                 block_b: int = 128, stages_per_step: int = 25,
                  gains: AttitudeGains = AttitudeGains(),
                  predict_substeps: int = 4,
-                 tick_dt: Optional[float] = None,
-                 interpret: bool = False):
+                 tick_dt: Optional[float] = None):
         """tick_dt: the REAL interval between telemetry samples (= the
         serving period).  The estimator's velocity differentiation and
         the delay predictor's integration step must use the actual
@@ -92,25 +91,24 @@ class SwarmNMPC:
         self.batch = B = targets.shape[0]
         self.targets = targets
         if use_fused is None:
-            use_fused = jax.devices()[0].platform == "tpu"
+            # the batched path wherever its sweep kernel runs
+            use_fused = sweep_backend() == "kernel"
         self.use_fused = use_fused
-        self.lanes = (block_b * (-(-B // block_b)) if use_fused else B)
         if ipm_config is None:
             ipm_config = certified_config(
-                capacity=min(block_b, 256) if use_fused else 0)
+                capacity=min(B, 256) if use_fused else 0)
         self.ipm_config = ipm_config
         d = int(delay_steps)
 
-        # per-vehicle regulation references, padded to the lane count
-        # (padded lanes re-solve real problems; commands discarded)
+        # per-vehicle regulation references
         yrefs, yref_es = [], []
-        for b in range(self.lanes):
+        for b in range(B):
             yr, ye = hover_yref(
-                spec, pos=tuple(float(v) for v in targets[b % B]))
+                spec, pos=tuple(float(v) for v in targets[b]))
             yrefs.append(yr)
             yref_es.append(ye)
-        self._yref = jnp.stack(yrefs)            # (lanes, N, ny)
-        self._yref_e = jnp.stack(yref_es)        # (lanes, nx)
+        self._yref = jnp.stack(yrefs)            # (B, N, ny)
+        self._yref_e = jnp.stack(yref_es)        # (B, nx)
 
         params = spec.params
         dt = float(tick_dt) if tick_dt is not None else float(spec.dt)
@@ -140,9 +138,7 @@ class SwarmNMPC:
             return xp
 
         if use_fused:
-            kw = dict(config=ipm_config, block_b=block_b,
-                      stages_per_step=stages_per_step,
-                      layout="batch_last", interpret=interpret)
+            kw = dict(config=ipm_config, layout="batch_last")
 
             def _step(carry, mocap, euler_deg, gyro_deg):
                 est, states, cmd_prev = carry
@@ -175,16 +171,10 @@ class SwarmNMPC:
         self._step = jax.jit(_step, donate_argnums=(0,))
         self._carry = None
 
-    def _pad(self, arr: np.ndarray) -> np.ndarray:
-        if arr.shape[0] == self.lanes:
-            return arr
-        reps = -(-self.lanes // arr.shape[0])
-        return np.tile(arr, (reps,) + (1,) * (arr.ndim - 1))[:self.lanes]
-
     def reset(self, x0s: np.ndarray):
         """(Re)initialize warm starts, estimator filters, and the held
         hover cmd_vel from (B, nx) vehicle states."""
-        x0s = jnp.asarray(self._pad(np.asarray(x0s, np.float32)))
+        x0s = jnp.asarray(np.asarray(x0s, np.float32))
         st = jax.vmap(lambda x: init_rti(self.spec, x))(x0s)
         if self.use_fused:
             st = RTIState(x_traj=jnp.moveaxis(st.x_traj, 0, -1),
@@ -194,21 +184,20 @@ class SwarmNMPC:
         uss = self.spec.steady_input(jnp.float32)
         hover_cmd = jnp.array([0.0, 0.0, 0.0,
                                krpm2pwm(jnp.mean(uss))], jnp.float32)
-        cmd0 = jnp.broadcast_to(hover_cmd, (self.lanes, 4))
+        cmd0 = jnp.broadcast_to(hover_cmd, (self.batch, 4))
         self._carry = (est, st, cmd0)
 
     def step(self, mocap, euler_deg, gyro_deg):
         """One serving tick: (B,3) telemetry arrays -> (B,4) cmd_vel
         rows [roll deg, pitch deg, yawrate deg/s, thrust PWM] + (B,nu)
-        rotor plan row 0 (the motvel loopback) — numpy, sliced to B."""
+        rotor plan row 0 (the motvel loopback) — numpy."""
         if self._carry is None:
             raise RuntimeError("call reset() before step()")
-        args = [jnp.asarray(self._pad(np.asarray(a, np.float32)))
+        args = [jnp.asarray(np.asarray(a, np.float32))
                 for a in (mocap, euler_deg, gyro_deg)]
         self._carry, cmd, u_apply, kkt = self._step(self._carry, *args)
         cmd, u_apply = jax.device_get((cmd, u_apply))
-        return (np.asarray(cmd)[:self.batch],
-                np.asarray(u_apply)[:self.batch])
+        return np.asarray(cmd), np.asarray(u_apply)
 
 
 @dataclasses.dataclass

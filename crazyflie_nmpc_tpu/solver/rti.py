@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from crazyflie_nmpc_tpu.ops import ipm
+from crazyflie_nmpc_tpu.ops.backend import highest_precision
 from crazyflie_nmpc_tpu.ops.integrators import linearize_trajectory, rollout
 from crazyflie_nmpc_tpu.ops.qp import build_qp, gauss_newton_cost_blocks
 from crazyflie_nmpc_tpu.solver.ocp import OCPSpec
@@ -78,6 +79,7 @@ def init_rti(spec: OCPSpec, x0: jax.Array) -> RTIState:
     return RTIState(x_traj=x_traj, u_traj=u_traj)
 
 
+@highest_precision
 def rti_step(spec: OCPSpec, state: RTIState, x0: jax.Array,
              yref: jax.Array, yref_e: jax.Array,
              config: ipm.IPMConfig = ipm.IPMConfig()):
@@ -127,6 +129,7 @@ def rti_step(spec: OCPSpec, state: RTIState, x0: jax.Array,
     return new_state, out
 
 
+@highest_precision
 def sqp_solve(spec: OCPSpec, state: RTIState, x0, yref, yref_e,
               iters: int = 10, config: ipm.IPMConfig = ipm.IPMConfig()):
     """Full SQP: iterate rti_step to convergence on a fixed problem.
@@ -143,6 +146,7 @@ def sqp_solve(spec: OCPSpec, state: RTIState, x0, yref, yref_e,
     return state, kkts
 
 
+@highest_precision
 def as_rti_prepare(spec: OCPSpec, state: RTIState, x0_pred, yref, yref_e,
                    prep_iters: int = 1,
                    config: ipm.IPMConfig = ipm.IPMConfig()) -> RTIState:
@@ -162,6 +166,7 @@ def as_rti_prepare(spec: OCPSpec, state: RTIState, x0_pred, yref, yref_e,
     return state
 
 
+@highest_precision
 def as_rti_step(spec: OCPSpec, state: RTIState, x0, x0_pred_next,
                 yref, yref_e, config: ipm.IPMConfig = ipm.IPMConfig(),
                 prep_iters: int = 1):

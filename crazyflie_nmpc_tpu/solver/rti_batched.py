@@ -1,17 +1,18 @@
-"""Throughput-oriented batched RTI step (fused Pallas QP backend).
+"""Throughput-oriented batched RTI step.
 
 The production serving path (BASELINE.json configs 3-5): many independent
 NMPC instances advanced one SQP-RTI iteration per call.  Mathematically
 identical to vmap(rti_step) with the XLA IPM backend — the difference is
-the QP solve runs through `ops.ipm_fast` (batch-last fused Riccati
-kernels), which is an order of magnitude faster per iteration on TPU.
+the layout and structure: a stage-parallel preparation phase with the
+hand-derived sparse VDE and block-2 condensing (`ops.prep`), then the
+batch-last IPM (`ops.ipm_fast`), whose Riccati sweeps run as one kernel
+launch each on a GPU.
 
 Layouts: the default API is batch-FIRST (compatible with
-`solver.rti.RTIState` pytrees); the kernels want batch-LAST.  A serving
+`solver.rti.RTIState` pytrees); the solver wants batch-LAST.  A serving
 loop that chains steps device-side should pass `layout="batch_last"` and
-carry batch-last states — that removes two large layout transposes per
-tick (~1 ms/step at B=4096 on v5e, measured), the whole pipeline then
-runs in kernel layout end to end.
+carry batch-last states — that removes two layout transposes per tick;
+the whole pipeline then runs batch-last end to end.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from crazyflie_nmpc_tpu.models.quadrotor import dynamics
-from crazyflie_nmpc_tpu.ops import ipm, ipm_fast
+from crazyflie_nmpc_tpu.ops import ipm, ipm_fast, prep
 from crazyflie_nmpc_tpu.ops.integrators import linearize_trajectory
 from crazyflie_nmpc_tpu.solver.ocp import OCPSpec
 from crazyflie_nmpc_tpu.solver.rti import RTIOutput, RTIState
@@ -40,17 +41,10 @@ def to_batch_first(states: RTIState) -> RTIState:
 def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: jax.Array,
                      yref: jax.Array, yref_e: jax.Array,
                      config: ipm.IPMConfig = ipm.IPMConfig(),
-                     block_b: int = 128, stages_per_step: int = 1,
-                     interpret: bool = False,
-                     fused_prep: bool = True,
-                     fused_prep_condense: bool | None = None,
-                     prep_stages_per_step: int = 5,
-                     prep_batch_rows: int | None = None,
                      condense: int | None = None,
                      layout: str = "batch_first",
-                     windowed: bool | None = None,
-                     fused_iter: bool = False,
-                     prep_vde_order: int = 4):
+                     prep_vde_order: int = 4,
+                     sweep: str | None = None):
     """One RTI iteration for a batch of problems.
 
     Args:
@@ -60,12 +54,13 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: jax.Array,
       x0s: (B, nx).  yref: (N, ny) shared or (B, N, ny) per-problem;
       yref_e likewise.
       condense: None (default) selects block-2 partial condensing whenever
-        the horizon is even — the production fast path (+19%, exact); pass
-        1 to force the uncondensed kernels.
+        the horizon is even — the production path (exact); pass 1 to
+        force the uncondensed recursion.
       prep_vde_order: 4 (default) = exact ERK4 matrix VDE sensitivities;
         2 = midpoint 2nd-order sensitivities on the exact ERK4 state
-        propagation (inexact-Jacobian Gauss-Newton — opt-in, adjudicated
-        in docs/PERF.md; fused-prep path only).
+        propagation (inexact-Jacobian Gauss-Newton, opt-in).
+      sweep: "kernel" / "plain" / "interpret", see `ops.ipm_fast`;
+        None lets `ops.backend.sweep_backend` decide from the platform.
     Returns (RTIState', RTIOutput) in the same layout as the input
     (batch_last: u0/u1 are (nu,B), plans are stage-major batch-last).
     """
@@ -74,9 +69,8 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: jax.Array,
     if spec.f is not None:
         raise ValueError(
             "rti_step_batched is specialized to the Crazyflie quadrotor "
-            "(fused prep kernel with hand-derived sparse Jacobians); "
-            "custom-model specs (spec.f set) use solver.rti.rti_step, "
-            "batched with jax.vmap.")
+            "(hand-derived sparse Jacobians); custom-model specs (spec.f "
+            "set) use solver.rti.rti_step, batched with jax.vmap.")
     B = x0s.shape[0]
     cost = spec.cost
     batch_last = layout == "batch_last"
@@ -107,63 +101,43 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: jax.Array,
 
     p = pT_diag[:, None] * (x_bl[-1] - yref_e_bl)          # (nx, B)
     dx0_bl = bl(x0s) - x_bl[0]
+    common = dict(
+        ruu=jnp.broadcast_to(r_diag[None, :, None], (N, nu, B)),
+        pT=jnp.broadcast_to(pT_diag[:, None], (nx, B)),
+        p=p,
+        dx0=dx0_bl,
+    )
 
-    if fused_prep and spec.sim_steps == 1:
-        # preparation phase as ONE Pallas launch: ERK4 + sparse analytic
-        # VDE + assembly (ops.pallas.prep_kernel)
-        from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as pk
-
-        while N % prep_stages_per_step != 0:  # shrink to a divisor of N
-            prep_stages_per_step -= 1
-
+    if spec.sim_steps == 1:
+        # preparation phase: ERK4 + sparse analytic VDE + assembly, stage-
+        # parallel (ops.prep); condensed in the same function when the
+        # solver runs block-2 condensing
         par = spec.params
-        ptile = jnp.stack([jnp.broadcast_to(jnp.asarray(v, dtype), (B,))
-                           for v in (par.g0, par.mq, par.Ixx, par.Iyy,
-                                     par.Izz, par.Cd, par.Ct, par.l,
-                                     spec.dt)])
-        tile = lambda v, n: jnp.broadcast_to(
-            jnp.asarray(v, dtype).reshape(n, 1), (n, B))
-        prep_args = (
-            x_bl, u_bl, yref_bl,
-            tile(q_diag, nx), tile(r_diag, nu),
-            tile(jnp.broadcast_to(spec.lbu, (nu,)), nu),
-            tile(jnp.broadcast_to(spec.ubu, (nu,)), nu),
-            ptile)
-        common = dict(
-            ruu=jnp.broadcast_to(r_diag[None, :, None], (N, nu, B)),
-            pT=jnp.broadcast_to(pT_diag[:, None], (nx, B)),
-            p=p,
-            dx0=dx0_bl,
-        )
-        if fused_prep_condense is None:
-            fused_prep_condense = (condense == 2
-                                   and prep_batch_rows in (None, 1))
-        if fused_prep_condense and condense != 2:
-            raise ValueError("fused_prep_condense requires condense=2")
-        if fused_prep_condense:
-            # fused prep+condense: the full-horizon A/B Jacobians never
-            # leave VMEM (~320 MB/step less HBM traffic at N=50, B=4096)
-            cnd, Ae, Be, c_k, lb_k, ub_k = pk.prep_condense2(
-                *prep_args, block_b=block_b,
-                pairs_per_step=prep_stages_per_step,
-                interpret=interpret, vde_order=prep_vde_order)
+        params = jnp.stack([jnp.asarray(v, dtype)
+                            for v in (par.g0, par.mq, par.Ixx, par.Iyy,
+                                      par.Izz, par.Cd, par.Ct, par.l,
+                                      spec.dt)])
+        lbu = jnp.broadcast_to(spec.lbu, (nu,)).astype(dtype)
+        ubu = jnp.broadcast_to(spec.ubu, (nu,)).astype(dtype)
+        prep_args = (x_bl, u_bl, yref_bl, q_diag, r_diag, lbu, ubu, params)
+        if condense == 2:
+            cnd, Ae, Be, c_k, lb_k, ub_k = prep.prep_condense2(
+                *prep_args, vde_order=prep_vde_order)
             qp = dict(
                 c=c_k, lb=lb_k, ub=ub_k,
                 c2Ae=Ae, c2Be=Be,
                 **{"c2" + k: v for k, v in cnd.items()},
                 **common)
         else:
-            A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = pk.prep_sweep(
-                *prep_args, block_b=block_b,
-                stages_per_step=prep_stages_per_step, interpret=interpret,
-                batch_rows=prep_batch_rows, vde_order=prep_vde_order)
+            A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep.prep(
+                *prep_args, vde_order=prep_vde_order)
             qp = dict(
                 A=A_k, B=B_k, c=c_k, qx=qx_k, ru=ru_k, lb=lb_k, ub=ub_k,
                 qxx=jnp.broadcast_to(q_diag[None, :, None], (N, nx, B)),
                 **common)
     else:
-        # XLA preparation: stage-parallel jacfwd linearization (general
-        # sim_steps path) — runs batch-first under vmap
+        # general sim_steps path: stage-parallel jacfwd linearization,
+        # batch-first under vmap
         x_bf = states.x_traj if not batch_last else jnp.moveaxis(x_bl, -1, 0)
         u_bf = states.u_traj if not batch_last else jnp.moveaxis(u_bl, -1, 0)
         x_next, A, Bm = jax.vmap(
@@ -178,24 +152,15 @@ def rti_step_batched(spec: OCPSpec, states: RTIState, x0s: jax.Array,
             c=bl(x_next - x_bf[:, 1:]),
             qxx=jnp.broadcast_to(q_diag[None, :, None], (N, nx, B)),
             qx=bl(qx),
-            ruu=jnp.broadcast_to(r_diag[None, :, None], (N, nu, B)),
             ru=bl(ru),
-            pT=jnp.broadcast_to(pT_diag[:, None], (nx, B)),
-            p=p,
             lb=bl(spec.lbu - u_bf),
             ub=bl(spec.ubu - u_bf),
-            dx0=dx0_bl,
+            **common,
         )
 
-    # --- feedback: batch-last fused IPM
-    sol = ipm_fast.solve_batched(qp, config,
-                                 block_b=block_b,
-                                 stages_per_step=stages_per_step,
-                                 interpret=interpret,
-                                 condense=condense,
-                                 windowed=windowed,
-                                 fused_iter=fused_iter)
-
+    # --- feedback: batch-last IPM
+    sol = ipm_fast.solve_batched(qp, config, condense=condense,
+                                 sweep=sweep)
     x_traj_bl = x_bl + sol.dx
     u_traj_bl = u_bl + sol.du
 

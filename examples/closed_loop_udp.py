@@ -22,8 +22,8 @@ sys.path.insert(0, ".")
 
 import jax
 
-# Protocol/pipeline demo with a per-tick host loop: run on CPU (the TPU
-# path is for batched solves, not single-tick host round-trips).
+# Protocol/pipeline demo with a per-tick host loop: run on CPU (the
+# accelerator path is for batched solves, not single-tick host round-trips).
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np

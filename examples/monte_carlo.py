@@ -1,12 +1,11 @@
 """Monte-Carlo robustness study: 1k perturbed hover scenarios in lockstep.
 
 BASELINE.json config 3 as a runnable example: the whole batch of closed
-loops is ONE jit'd scan whose per-tick controller is the fused-kernel
-batched RTI step (every scenario = one lane of the batch-last kernels).
-On a TPU this runs thousands of scenarios in seconds; on CPU it runs the
-same program through the kernel interpreter at a small batch.
+loops is ONE jit'd scan whose per-tick controller is the batched RTI
+step (every scenario = one lane of the batch-last solver).  It runs on
+the default device; --cpu pins the CPU backend.
 
-    python examples/monte_carlo.py [--batch 64] [--steps 200] [--tpu]
+    python examples/monte_carlo.py [--batch 64] [--steps 200] [--cpu]
 
 Prints convergence statistics and writes a flight bag of the worst
 scenario for inspection with `python -m crazyflie_nmpc_tpu.tools bag`.
@@ -25,12 +24,13 @@ def main():
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--pos-scale", type=float, default=0.3)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default accelerator instead of CPU")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the default "
+                         "device")
     ap.add_argument("--bag", default="/tmp/mc_worst.bag")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
@@ -40,12 +40,10 @@ def main():
     from crazyflie_nmpc_tpu.runtime.batch import monte_carlo_hover
     from crazyflie_nmpc_tpu.solver import default_ocp
 
-    on_acc = jax.devices()[0].platform != "cpu"
     spec = default_ocp(dtype=jnp.float32)
     res = monte_carlo_hover(
         spec, jax.random.PRNGKey(0), batch=args.batch, steps=args.steps,
-        pos_scale=args.pos_scale, config=IPMConfig(iters=8),
-        block_b=min(128, args.batch), interpret=not on_acc)
+        pos_scale=args.pos_scale, config=IPMConfig(iters=8))
 
     x = np.asarray(res.x)                      # (T, B, 13)
     setpoint = np.array([0.0, 0.0, 0.5])

@@ -1,4 +1,4 @@
-"""The multi-drone server, TPU-natively ONE solve — runnable example.
+"""The multi-drone server as ONE batched solve — runnable example.
 
 The reference runs one NMPC node per Crazyflie behind a per-drone-thread
 server (crazyflie_server.cpp:155,1108-1131; multi_hover_*.launch).  Here

@@ -66,8 +66,7 @@ def main():
     x0s = globalize(x0s_np)
     states = jax.tree.map(globalize, states_np)
 
-    step = pod_rti_step(spec, mesh, IPMConfig(iters=6), block_b=2,
-                        stages_per_step=5, interpret=True)
+    step = pod_rti_step(spec, mesh, IPMConfig(iters=6))
     new_states, outs = step(states, x0s, jnp.asarray(yref),
                             jnp.asarray(yref_e))
 

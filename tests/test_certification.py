@@ -183,8 +183,8 @@ def test_certified_helix_loop():
 
 
 def test_certified_fused_batched_path():
-    """The PRODUCTION serving path (rti_step_batched -> fused Pallas
-    kernels, block-2 condensing, interpret mode at f64) certified against
+    """The PRODUCTION serving path (rti_step_batched: stage-parallel
+    preparation, block-2 condensing, batched IPM, at f64) certified against
     the oracle on a mixed batch — saturating jumps and benign lanes —
     with per-lane escalation gathering only the unconverged lanes."""
     from crazyflie_nmpc_tpu.solver.rti_batched import rti_step_batched
@@ -201,9 +201,7 @@ def test_certified_fused_batched_path():
 
     @jax.jit
     def step(s, x):
-        return rti_step_batched(spec, s, x, yref, yref_e, cfg,
-                                block_b=3, stages_per_step=5,
-                                interpret=True)
+        return rti_step_batched(spec, s, x, yref, yref_e, cfg)
 
     @jax.jit
     def plant(x, u):
@@ -231,7 +229,7 @@ def test_certified_defaults_wired():
     proven exact vs the active-set oracle at every tick incl. bang-bang
     (tools/bangbang_cert.py), adopted because plain fixed-8 measurably
     degrades aggressive transients (0.21 m trajectory divergence, +7%
-    LQ cost at 1.5 m — tools/default_iters_flightcheck.py, docs/PERF.md)."""
+    LQ cost at 1.5 m — tools/default_iters_flightcheck.py)."""
     from crazyflie_nmpc_tpu.ops.ipm import certified_config
     from crazyflie_nmpc_tpu.runtime.closed_loop import LoopConfig
     from crazyflie_nmpc_tpu.runtime.serving import ServingLoop

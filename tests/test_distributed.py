@@ -60,8 +60,7 @@ def test_two_process_pod_step(tmp_path):
            + 0.04 * jax.random.normal(key, (B, NX), jnp.float32))
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
     _, ref = rti_step_batched(spec, states, x0s, yref, yref_e,
-                              IPMConfig(iters=6), block_b=2,
-                              stages_per_step=5, interpret=True)
+                              IPMConfig(iters=6))
     np.testing.assert_allclose(u0, np.asarray(ref.u0), rtol=2e-3, atol=2e-3)
 
     # both ranks agree on the pod-wide reduced metrics (one Gloo all-reduce)

@@ -50,8 +50,7 @@ def test_paper_flight_helix_tracking_60ms():
     """The composed configuration tracks the helix at cm level with the
     full 60 ms round trip: measured 2.30 cm max / ~1 cm mean over the
     accelerating phase (identical 2.303 cm max over the full 1050-row
-    helix — recorded run in docs/PERF.md "Full-helix evidence"; the
-    README headline cites this loop)."""
+    helix; the README headline cites this loop)."""
     spec, table = _setup()
     res = flight_configuration(spec, table, steps=400, delay_steps=4,
                                config=CFG)

@@ -11,8 +11,15 @@ native = pytest.importorskip("crazyflie_nmpc_tpu.native")
 
 
 def test_build():
+    import os
+
     path = native.build_library()
-    assert path.endswith("libcfl.so")
+    name = os.path.basename(path)
+    assert name.startswith("libcfl-") and name.endswith(".so")
+    # built outside the package, reused while the sources are unchanged
+    assert os.path.join("build", "native") in path
+    assert os.path.exists(path)
+    assert native.build_library() == path
 
 
 def test_setpoint_roundtrip():

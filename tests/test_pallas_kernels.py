@@ -1,10 +1,12 @@
-"""Pallas kernel parity vs the XLA reference path (interpret mode on CPU).
+"""Batched-path parity vs the reference path: batch-last sweeps, stage-
+parallel preparation and block-2 condensing, and the batched IPM.
 
-The fused kernels take the cost as DIAGONALS (the reference LLS cost
+The batched solver takes the cost as DIAGONALS (the reference LLS cost
 structure: Qxx/Ruu/W_e diagonal, S = 0 — generate_c_code.py:62-129); the
 reference `ops.riccati`/`ops.ipm` path consumes the same problems with the
 diagonals embedded dense, so agreement checks both the algebra and the
-structure exploitation.
+structure exploitation.  These run the plain (`lax.scan`) sweeps; the GPU
+sweep kernel is checked against them in tests/test_sweep_kernel.py.
 """
 
 import jax
@@ -12,19 +14,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from crazyflie_nmpc_tpu.ops import ipm, ipm_fast, riccati
-from crazyflie_nmpc_tpu.ops.pallas import riccati_kernels as rk
+from crazyflie_nmpc_tpu.ops import ipm, ipm_fast, prep, riccati, sweeps
 from crazyflie_nmpc_tpu.ops.qp import QPData
 
 B = 8
 N = 10
 NXD, NUD = 13, 4
-KERN = dict(block_b=B, stages_per_step=5, interpret=True)
+KERN = dict(sweep="plain")
 
 
 def random_diag_lq(key, N=N, nx=NXD, nu=NUD, dtype=jnp.float32):
-    """Random stage-structured LQ problem with diagonal cost (the fused
-    kernels' contract).  Dense embeddings included for the reference path."""
+    """Random stage-structured LQ problem with diagonal cost (the batched
+    solver's contract).  Dense embeddings included for the reference path."""
     ks = jax.random.split(key, 12)
     A = 0.9 * jax.random.normal(ks[0], (N, nx, nx), dtype) / float(np.sqrt(nx))
     A = A + jnp.eye(nx, dtype=dtype) * 0.5
@@ -72,10 +73,10 @@ def test_backward_forward_match_sequential():
     dx_ref, du_ref = jax.vmap(riccati.forward_rollout)(
         fr, kf_ref, dense["A"], dense["B"], dense["c"], dense["dx0"])
 
-    K, kff, L, Pc = rk.backward_sweep(
-        bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]),
-        bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]), bl(diag["pT"]),
-        bl(diag["p_term"]), **KERN)
+    K, kff, L, Pc, dx, du = sweeps.kkt_sweep(
+        bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]), None,
+        None, bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]),
+        bl(diag["pT"]), bl(diag["p_term"]), bl(diag["dx0"]))
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(K, -1, 0)),
                                np.asarray(fr.K), rtol=2e-4, atol=2e-4)
     # Pc[k] must be P_{k+1} c_k
@@ -85,8 +86,6 @@ def test_backward_forward_match_sequential():
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(kff, -1, 0)),
                                np.asarray(kf_ref), rtol=2e-4, atol=2e-4)
 
-    dx, du = rk.forward_sweep(bl(diag["A"]), bl(diag["B"]), bl(diag["c"]),
-                              K, kff, bl(diag["dx0"]), **KERN)
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(du, -1, 0)),
                                np.asarray(du_ref), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(dx, -1, 0)),
@@ -101,16 +100,21 @@ def test_vector_sweep_second_rhs():
     kf2_ref, _ = jax.vmap(riccati.backward_vector)(
         fr, dense["A"], dense["B"], 2.0 * dense["qx"], -0.5 * dense["ru"],
         dense["c"], 0.3 * dense["p_term"])
+    dx_ref, du_ref = jax.vmap(riccati.forward_rollout)(
+        fr, kf2_ref, dense["A"], dense["B"], dense["c"], dense["dx0"])
 
-    K, kff, L, Pc = rk.backward_sweep(
-        bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]),
-        bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]), bl(diag["pT"]),
-        bl(diag["p_term"]), **KERN)
-    kff2 = rk.backward_vector_sweep(
-        bl(diag["A"]), bl(diag["B"]), bl(2.0 * diag["qx"]),
-        bl(-0.5 * diag["ru"]), K, L, Pc, bl(0.3 * diag["p_term"]), **KERN)
-    np.testing.assert_allclose(np.asarray(jnp.moveaxis(kff2, -1, 0)),
-                               np.asarray(kf2_ref), rtol=2e-4, atol=2e-4)
+    K, kff, L, Pc, _, _ = sweeps.kkt_sweep(
+        bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]), None,
+        None, bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]),
+        bl(diag["pT"]), bl(diag["p_term"]), bl(diag["dx0"]))
+    dx2, du2 = sweeps.corrector_sweep(
+        bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(2.0 * diag["qx"]),
+        bl(-0.5 * diag["ru"]), K, L, Pc, bl(0.3 * diag["p_term"]),
+        bl(diag["dx0"]))
+    np.testing.assert_allclose(np.asarray(jnp.moveaxis(du2, -1, 0)),
+                               np.asarray(du_ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(jnp.moveaxis(dx2, -1, 0)),
+                               np.asarray(dx_ref), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("bounded", [False, True])
@@ -166,9 +170,7 @@ def test_rti_step_batched_matches_rti_step():
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
     cfg = ipm.IPMConfig(iters=6)
 
-    new_b, out_b = rti_step_batched(spec, states, x0s, yref, yref_e, cfg,
-                                    block_b=B, stages_per_step=5,
-                                    interpret=True)
+    new_b, out_b = rti_step_batched(spec, states, x0s, yref, yref_e, cfg)
     ref_step = jax.jit(lambda s, x: rti_step(spec, s, x, yref, yref_e, cfg))
     for i in range(0, B, 3):
         si = jax.tree.map(lambda a: a[i], states)
@@ -177,53 +179,29 @@ def test_rti_step_batched_matches_rti_step():
                                    np.asarray(oi.u0), rtol=1e-3, atol=1e-3)
 
 
-def test_fused_kkt_sweep_matches_separate():
-    """kkt_sweep (one launch) == backward_sweep + forward_sweep."""
-    diag, dense = batch_lq(jax.random.PRNGKey(4))
-    args = (bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]),
-            bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]), bl(diag["pT"]),
-            bl(diag["p_term"]))
-    K, kff, L, Pc = rk.backward_sweep(*args, **KERN)
-    dx, du = rk.forward_sweep(bl(diag["A"]), bl(diag["B"]), bl(diag["c"]),
-                              K, kff, bl(diag["dx0"]), **KERN)
-    K2, kff2, L2, Pc2, dx2, du2 = rk.kkt_sweep(*args, bl(diag["dx0"]),
-                                               **KERN)
-    for a, b in [(K, K2), (kff, kff2), (L, L2), (Pc, Pc2), (dx, dx2),
-                 (du, du2)]:
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-6, atol=1e-6)
-
-
-def test_fused_corrector_sweep_matches_separate():
-    """corrector_sweep == backward_vector_sweep + forward_sweep."""
-    diag, dense = batch_lq(jax.random.PRNGKey(5))
-    args = (bl(diag["A"]), bl(diag["B"]), bl(diag["c"]), bl(diag["qxx"]),
-            bl(diag["qx"]), bl(diag["ruu"]), bl(diag["ru"]), bl(diag["pT"]),
-            bl(diag["p_term"]))
-    K, kff, L, Pc = rk.backward_sweep(*args, **KERN)
-    qx2, ru2, pt2 = (1.7 * diag["qx"], -0.4 * diag["ru"],
-                     0.6 * diag["p_term"])
-    kffc = rk.backward_vector_sweep(bl(diag["A"]), bl(diag["B"]), bl(qx2),
-                                    bl(ru2), K, L, Pc, bl(pt2), **KERN)
-    dx_ref, du_ref = rk.forward_sweep(bl(diag["A"]), bl(diag["B"]),
-                                      bl(diag["c"]), K, kffc,
-                                      bl(diag["dx0"]), **KERN)
-    dx, du = rk.corrector_sweep(bl(diag["A"]), bl(diag["B"]), bl(diag["c"]),
-                                bl(qx2), bl(ru2), K, L, Pc, bl(pt2),
-                                bl(diag["dx0"]), **KERN)
-    np.testing.assert_allclose(np.asarray(dx), np.asarray(dx_ref),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(du), np.asarray(du_ref),
-                               rtol=1e-6, atol=1e-6)
+def _prep_args(spec, x_traj, u, yref, dt=None):
+    """Batch-last arguments of `ops.prep.prep` for batch-first states."""
+    dtype = x_traj.dtype
+    par = spec.params
+    params = jnp.array([par.g0, par.mq, par.Ixx, par.Iyy, par.Izz, par.Cd,
+                        par.Ct, par.l,
+                        float(spec.dt) if dt is None else dt], dtype)
+    blm = lambda z: jnp.moveaxis(z, 0, -1)
+    Bt = x_traj.shape[0]
+    return (blm(x_traj), blm(u),
+            jnp.broadcast_to(yref[:, :, None], yref.shape + (Bt,)),
+            jnp.diagonal(spec.cost.W)[:13].astype(dtype),
+            jnp.diagonal(spec.cost.W)[13:].astype(dtype),
+            spec.lbu.astype(dtype), spec.ubu.astype(dtype), params)
 
 
 def test_prep_kernel_matches_xla_path():
-    """Fused ERK4+VDE+assembly kernel == jacfwd linearization + diagonal
-    QP assembly (the rti_step_batched preparation phase)."""
-    from crazyflie_nmpc_tpu.models import QuadrotorParams, hover_state
+    """Stage-parallel ERK4 + sparse VDE + assembly (ops.prep) == jacfwd
+    linearization + diagonal QP assembly (the rti_step_batched
+    preparation phase)."""
+    from crazyflie_nmpc_tpu.models import hover_state
     from crazyflie_nmpc_tpu.models.quadrotor import dynamics
     from crazyflie_nmpc_tpu.ops.integrators import linearize_trajectory
-    from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as pk
     from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
 
     spec = default_ocp(N=10, dtype=jnp.float32)
@@ -248,21 +226,9 @@ def test_prep_kernel_matches_xla_path():
     qx_ref = blm(q_diag * (states.x_traj[:, :-1] - yref[None, :, :13]))
     ru_ref = blm(r_diag * (u - yref[None, :, 13:]))
 
-    # kernel
-    par = spec.params
-    params_tile = jnp.broadcast_to(jnp.array(
-        [par.g0, par.mq, par.Ixx, par.Iyy, par.Izz, par.Cd, par.Ct, par.l,
-         float(spec.dt)], jnp.float32)[:, None], (9, B))
-    tile = lambda v: jnp.broadcast_to(
-        jnp.asarray(v, jnp.float32)[:, None], (len(v), B))
-    A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = pk.prep_sweep(
-        blm(states.x_traj), blm(u),
-        jnp.broadcast_to(yref[:, :, None], yref.shape + (B,)),
-        tile(q_diag), tile(r_diag),
-        jnp.broadcast_to(spec.lbu[:, None], (4, B)),
-        jnp.broadcast_to(spec.ubu[:, None], (4, B)),
-        params_tile, block_b=B, stages_per_step=5,
-        interpret=True)
+    # batched stage-parallel preparation
+    A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep.prep(
+        *_prep_args(spec, states.x_traj, u, yref))
 
     np.testing.assert_allclose(np.asarray(A_k), np.asarray(blm(A_ref)),
                                rtol=2e-5, atol=2e-6)
@@ -287,7 +253,6 @@ def test_prep_vde_order2_truncation_is_third_order():
     halves (3rd-order), pinning that the o2 path implements the
     documented expansion and nothing else."""
     from crazyflie_nmpc_tpu.models import hover_state
-    from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as pk
     from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
 
     spec = default_ocp(N=10, dtype=jnp.float32)
@@ -298,25 +263,10 @@ def test_prep_vde_order2_truncation_is_third_order():
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
     u = states.u_traj + 0.5 * jax.random.normal(
         jax.random.fold_in(key, 1), states.u_traj.shape, jnp.float32)
-    blm = lambda z: jnp.moveaxis(z, 0, -1)
-    q_diag = jnp.diagonal(spec.cost.W)[:13]
-    r_diag = jnp.diagonal(spec.cost.W)[13:]
-    tile = lambda v: jnp.broadcast_to(
-        jnp.asarray(v, jnp.float32)[:, None], (len(v), B))
-    par = spec.params
 
     def run(dt, order):
-        params_tile = jnp.broadcast_to(jnp.array(
-            [par.g0, par.mq, par.Ixx, par.Iyy, par.Izz, par.Cd, par.Ct,
-             par.l, dt], jnp.float32)[:, None], (9, B))
-        return pk.prep_sweep(
-            blm(states.x_traj), blm(u),
-            jnp.broadcast_to(yref[:, :, None], yref.shape + (B,)),
-            tile(q_diag), tile(r_diag),
-            jnp.broadcast_to(spec.lbu[:, None], (4, B)),
-            jnp.broadcast_to(spec.ubu[:, None], (4, B)),
-            params_tile, block_b=B, stages_per_step=5,
-            interpret=True, vde_order=order)
+        return prep.prep(*_prep_args(spec, states.x_traj, u, yref, dt),
+                         vde_order=order)
 
     errs = {}
     for dt in (0.015, 0.0075):
@@ -334,56 +284,11 @@ def test_prep_vde_order2_truncation_is_third_order():
     assert 4.5 < rb < 14.0, (errs, rb)
 
 
-def test_prep_kernel_2d_batch_matches_1d():
-    """The 2D-batch-tile prep variant (batch as (8, 128) VPU tiles — the
-    TPU fast path for B % 1024 == 0) is the same arithmetic per lane as
-    the 1D layout; outputs must agree bitwise-closely."""
-    from crazyflie_nmpc_tpu.models import hover_state
-    from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as pk
-    from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
-
-    Bt = 1024
-    spec = default_ocp(N=4, dtype=jnp.float32)
-    yref, _ = hover_yref(spec)
-    key = jax.random.PRNGKey(11)
-    x0s = (hover_state(spec.params, dtype=jnp.float32)[None, :]
-           + 0.05 * jax.random.normal(key, (Bt, 13), jnp.float32))
-    states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
-    u = states.u_traj + 0.3 * jax.random.normal(
-        jax.random.fold_in(key, 1), states.u_traj.shape, jnp.float32)
-    blm = lambda z: jnp.moveaxis(z, 0, -1)
-
-    par = spec.params
-    params_tile = jnp.broadcast_to(jnp.array(
-        [par.g0, par.mq, par.Ixx, par.Iyy, par.Izz, par.Cd, par.Ct, par.l,
-         float(spec.dt)], jnp.float32)[:, None], (9, Bt))
-    tile = lambda v: jnp.broadcast_to(
-        jnp.asarray(v, jnp.float32)[:, None], (len(v), Bt))
-    q_diag = jnp.diagonal(spec.cost.W)[:13]
-    r_diag = jnp.diagonal(spec.cost.W)[13:]
-    args = (blm(states.x_traj), blm(u),
-            jnp.broadcast_to(yref[:, :, None], yref.shape + (Bt,)),
-            tile(q_diag), tile(r_diag),
-            jnp.broadcast_to(spec.lbu[:, None], (4, Bt)),
-            jnp.broadcast_to(spec.ubu[:, None], (4, Bt)),
-            params_tile)
-    ref = pk.prep_sweep(*args, block_b=128, stages_per_step=2,
-                        interpret=True, batch_rows=1)
-    out = pk.prep_sweep(*args, block_b=128, stages_per_step=2,
-                        interpret=True, batch_rows=8)
-    for o, r in zip(out, ref):
-        assert o.shape == r.shape
-        # same math, different vector widths — f32 roundoff only
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   rtol=2e-5, atol=1e-6)
-
-
 def test_prep_condense2_matches_two_launch():
-    """Fused prep+condense (one launch, full-horizon A/B stay in VMEM)
-    == prep_sweep followed by condense2 — exact reorganization."""
+    """prep_condense2 (preparation + block-2 condensing in one stage-
+    parallel function) == prep followed by condense2, and the pair
+    condensing run stage by stage — exact reorganization."""
     from crazyflie_nmpc_tpu.models import hover_state
-    from crazyflie_nmpc_tpu.ops.pallas import condensed_kernels as ck
-    from crazyflie_nmpc_tpu.ops.pallas import prep_kernel as pk
     from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
 
     Bt = 8
@@ -395,33 +300,22 @@ def test_prep_condense2_matches_two_launch():
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
     u = states.u_traj + 0.3 * jax.random.normal(
         jax.random.fold_in(key, 1), states.u_traj.shape, jnp.float64)
-    blm = lambda z: jnp.moveaxis(z, 0, -1)
+    args = _prep_args(spec, states.x_traj, u, yref)
 
-    par = spec.params
-    params_tile = jnp.broadcast_to(jnp.array(
-        [par.g0, par.mq, par.Ixx, par.Iyy, par.Izz, par.Cd, par.Ct, par.l,
-         float(spec.dt)], jnp.float64)[:, None], (9, Bt))
-    tile = lambda v: jnp.broadcast_to(
-        jnp.asarray(v, jnp.float64)[:, None], (len(v), Bt))
-    q_diag = jnp.diagonal(spec.cost.W)[:13]
-    r_diag = jnp.diagonal(spec.cost.W)[13:]
-    args = (blm(states.x_traj), blm(u),
-            jnp.broadcast_to(yref[:, :, None], yref.shape + (Bt,)),
-            tile(q_diag), tile(r_diag),
-            jnp.broadcast_to(spec.lbu[:, None], (4, Bt)),
-            jnp.broadcast_to(spec.ubu[:, None], (4, Bt)),
-            params_tile)
+    A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep.prep(*args)
+    q_diag = args[3]
+    qxx = jnp.broadcast_to(q_diag[None, :, None], (10, 13, Bt))
+    cnd_ref = sweeps.condense2(A_k, B_k, c_k, qxx, qx_k, ru_k)
+    # stage by stage: pair 2 of the horizon through condense_pair alone
+    one = sweeps.condense_pair(A_k[4], A_k[5], B_k[4], B_k[5], c_k[4],
+                               c_k[5], qxx[4], qxx[5], qx_k[4], qx_k[5],
+                               ru_k[4], ru_k[5])
 
-    A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = pk.prep_sweep(
-        *args, block_b=Bt, stages_per_step=5, interpret=True)
-    qxx = jnp.broadcast_to(q_diag[None, :, None].astype(jnp.float64),
-                           (10, 13, Bt))
-    cnd_ref = ck.condense2(A_k, B_k, c_k, qxx, qx_k, ru_k, block_b=Bt,
-                           interpret=True)
-
-    cnd, Ae, Be, c2, lb2, ub2 = pk.prep_condense2(
-        *args, block_b=Bt, pairs_per_step=5, interpret=True)
+    cnd, Ae, Be, c2, lb2, ub2 = prep.prep_condense2(*args)
     for k in cnd_ref:
+        np.testing.assert_allclose(np.asarray(cnd[k][2]),
+                                   np.asarray(one[k]),
+                                   rtol=1e-12, atol=1e-12, err_msg=k)
         np.testing.assert_allclose(np.asarray(cnd[k]),
                                    np.asarray(cnd_ref[k]),
                                    rtol=1e-12, atol=1e-12, err_msg=k)
@@ -438,8 +332,9 @@ def test_prep_condense2_matches_two_launch():
 
 
 def test_rti_batched_fused_prep_condense_matches():
-    """End to end: the fused prep+condense production path solves the
-    same problem as the two-launch path (same IPM, same outputs)."""
+    """End to end: the production path (prep_condense2 hands the solver
+    precondensed data) solves the same problem as condensing inside the
+    IPM from the uncondensed preparation (same IPM, same outputs)."""
     from crazyflie_nmpc_tpu.models import hover_state
     from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
     from crazyflie_nmpc_tpu.solver.rti_batched import (
@@ -456,36 +351,46 @@ def test_rti_batched_fused_prep_condense_matches():
                axis=1))
     states = to_batch_last(jax.vmap(lambda x: init_rti(spec, x))(x0s))
 
-    kw = dict(block_b=Bt, stages_per_step=5, interpret=True,
-              layout="batch_last")
-    s1, o1 = rti_step_batched(spec, states, x0s, yref, yref_e,
-                              fused_prep_condense=True, **kw)
-    s2, o2 = rti_step_batched(spec, states, x0s, yref, yref_e,
-                              fused_prep_condense=False, **kw)
-    np.testing.assert_allclose(np.asarray(o1.u_plan), np.asarray(o2.u_plan),
+    cfg = ipm.IPMConfig()
+    s1, o1 = rti_step_batched(spec, states, x0s, yref, yref_e, cfg,
+                              layout="batch_last", **KERN)
+
+    # the same step by hand: uncondensed preparation, condensed in the IPM
+    u_bf = jnp.moveaxis(states.u_traj, -1, 0)
+    x_bf = jnp.moveaxis(states.x_traj, -1, 0)
+    A_k, B_k, c_k, qx_k, ru_k, lb_k, ub_k = prep.prep(
+        *_prep_args(spec, x_bf, u_bf, yref))
+    q = jnp.diagonal(spec.cost.W)[:13]
+    r = jnp.diagonal(spec.cost.W)[13:]
+    pT = jnp.diagonal(spec.cost.W_e)
+    qp = dict(A=A_k, B=B_k, c=c_k, qx=qx_k, ru=ru_k, lb=lb_k, ub=ub_k,
+              qxx=jnp.broadcast_to(q[None, :, None], (10, 13, Bt)),
+              ruu=jnp.broadcast_to(r[None, :, None], (10, 4, Bt)),
+              pT=jnp.broadcast_to(pT[:, None], (13, Bt)),
+              p=pT[:, None] * (states.x_traj[-1] - yref_e[:, None]),
+              dx0=x0s.T - states.x_traj[0])
+    sol = ipm_fast.solve_batched(qp, cfg, condense=2, **KERN)
+    np.testing.assert_allclose(np.asarray(o1.u_plan),
+                               np.asarray(states.u_traj + sol.du),
                                rtol=1e-10, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(o1.x_plan), np.asarray(o2.x_plan),
-                               rtol=1e-10, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(o1.kkt_res), np.asarray(o2.kkt_res),
+    np.testing.assert_allclose(np.asarray(o1.x_plan),
+                               np.asarray(states.x_traj + sol.dx),
                                rtol=1e-10, atol=1e-10)
 
 
 # ---------------------------------------------------------------------------
 # block-2 partial condensing (the reference's PARTIAL_CONDENSING_HPIPM
-# structure, generate_c_code.py:140) — condensed kernels + solver path
+# structure, generate_c_code.py:140) — condensing + solver path
 # ---------------------------------------------------------------------------
 
 def test_condense2_matches_einsum_reference():
-    """The condensing kernel is an exact algebraic elimination; pin it
-    against a plain-XLA einsum construction."""
-    from crazyflie_nmpc_tpu.ops.pallas import condensed_kernels as ck
-
+    """Block-2 condensing is an exact algebraic elimination; pin the
+    broadcast-FMA form against an einsum construction."""
     diag, dense = batch_lq(jax.random.PRNGKey(7))
     A, Bm, c = diag["A"], diag["B"], diag["c"]         # (B, N, ...)
     qxx, qx, ru = diag["qxx"], diag["qx"], diag["ru"]
 
-    cnd = ck.condense2(bl(A), bl(Bm), bl(c), bl(qxx), bl(qx), bl(ru),
-                       block_b=B, interpret=True)
+    cnd = sweeps.condense2(bl(A), bl(Bm), bl(c), bl(qxx), bl(qx), bl(ru))
 
     A0, A1 = A[:, 0::2], A[:, 1::2]
     B0, B1 = Bm[:, 0::2], Bm[:, 1::2]
@@ -555,48 +460,6 @@ def test_ipm_fast_condensed_matches_ipm():
                                np.asarray(ref.lam_l), rtol=5e-3, atol=5e-3)
 
 
-def test_iter_sweep_c2_matches_two_launch_path():
-    """The opt-in whole-iteration kernel (iter_sweep_c2, fused_iter=True)
-    vs the default two-launch iteration: same Mehrotra algebra, the only
-    difference is stage-sequential in-kernel reductions for mu/alpha —
-    agreement to f32 rounding on bounded QPs.  (The single-launch form is
-    an opt-in because it measured ~2.5x SLOWER on v5e — docs/PERF.md.)"""
-    keys = jax.random.split(jax.random.PRNGKey(11), B)
-    qps = []
-    for k in keys:
-        diag, dense = random_diag_lq(k)
-        _, du_ref = riccati.solve_lq(
-            A=dense["A"], B=dense["B"], c=dense["c"], Qxx=dense["Qxx"],
-            qx=dense["qx"], Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-            P_term=dense["P_term"], p_term=dense["p_term"],
-            dx0=dense["dx0"])
-        lim = 0.5 * float(jnp.max(jnp.abs(du_ref)))
-        qps.append(QPData(A=dense["A"], B=dense["B"], c=dense["c"],
-                          Qxx=dense["Qxx"], qx=dense["qx"],
-                          Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-                          P=dense["P_term"], p=dense["p_term"],
-                          lb=jnp.full((N, NUD), -lim),
-                          ub=jnp.full((N, NUD), lim), dx0=dense["dx0"]))
-    batched = jax.tree.map(
-        lambda *xs: jnp.stack(xs).astype(jnp.float32), *qps)
-
-    cfg = ipm.IPMConfig(iters=8)
-    base = ipm_fast.solve_batched(ipm_fast.from_qpdata(batched), cfg,
-                                  condense=2, **KERN)
-    one = ipm_fast.solve_batched(ipm_fast.from_qpdata(batched), cfg,
-                                 condense=2, fused_iter=True, **KERN)
-    np.testing.assert_allclose(np.asarray(one.du), np.asarray(base.du),
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(one.dx), np.asarray(base.dx),
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(one.lam_l),
-                               np.asarray(base.lam_l),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(one.stats["mu"]),
-                               np.asarray(base.stats["mu"]),
-                               rtol=1e-3, atol=1e-6)
-
-
 def test_rti_step_batched_condensed_matches_plain():
     from crazyflie_nmpc_tpu.models import hover_state, NX
     from crazyflie_nmpc_tpu.solver import default_ocp, hover_yref, init_rti
@@ -611,11 +474,9 @@ def test_rti_step_batched_condensed_matches_plain():
     cfg = ipm.IPMConfig(iters=8)
 
     _, out1 = rti_step_batched(spec, states, x0s, yref, yref_e, cfg,
-                               block_b=B, stages_per_step=5,
-                               interpret=True, condense=1)
+                               condense=1)
     _, out2 = rti_step_batched(spec, states, x0s, yref, yref_e, cfg,
-                               block_b=B, stages_per_step=5,
-                               interpret=True, condense=2)
+                               condense=2)
     # f32 + 8 barrier iterations: the two paths take different arithmetic
     # routes to the same QP solution; agreement is tight but not bitwise
     np.testing.assert_allclose(np.asarray(out2.u0), np.asarray(out1.u0),
@@ -643,7 +504,7 @@ def test_rti_step_batched_batch_last_layout():
            + 0.03 * jax.random.normal(key, (B, NX), jnp.float32))
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
     cfg = ipm.IPMConfig(iters=6)
-    kw = dict(block_b=B, stages_per_step=5, interpret=True, condense=2)
+    kw = dict(condense=2)
 
     new1, out1 = rti_step_batched(spec, states, x0s, yref, yref_e, cfg,
                                   **kw)
@@ -658,28 +519,6 @@ def test_rti_step_batched_batch_last_layout():
     np.testing.assert_allclose(np.asarray(out2.kkt_res),
                                np.asarray(out1.kkt_res), rtol=1e-6,
                                atol=1e-6)
-
-
-def test_c2_vmem_clamp_envelope():
-    """The fused condensed path auto-clamps its stage blocking to the VMEM
-    envelope (whole-horizon gain scratch is O(M)) and refuses horizons past
-    it with actionable guidance.  Anchors are calibrated against measured
-    v5e pass/fail/spill points (docs/PERF.md)."""
-    from crazyflie_nmpc_tpu.ops.ipm_fast import _c2_vmem_clamp
-
-    # reference problem (N=50): the request is honored at the measured
-    # sweet spot and the default stays untouched
-    assert _c2_vmem_clamp(25, 128, 12) == 5
-    assert _c2_vmem_clamp(25, 128, 1) == 1
-    # N=200: ms=4 runs (20.9 ms measured); ms=5 compiles into a 3x Mosaic
-    # spill cliff and must be rejected
-    assert _c2_vmem_clamp(100, 128, 12) <= 4
-    # ms always divides M (the kernels round down otherwise)
-    for M in (25, 50, 100, 128):
-        assert M % _c2_vmem_clamp(M, 128, 12) == 0
-    # past the envelope: explicit error pointing at the fallbacks
-    with pytest.raises(ValueError, match="stage_sharded|condense=1"):
-        _c2_vmem_clamp(200, 128, 12)
 
 
 def test_ipm_fast_gondzio_matches_ipm():
@@ -716,119 +555,3 @@ def test_ipm_fast_gondzio_matches_ipm():
         q, ipm.IPMConfig(iters=5)))(batched)
     assert float(jnp.median(ref.stats["mu"])) < float(
         jnp.median(plain.stats["mu"]))
-
-
-def test_ipm_fast_windowed_matches_fused():
-    """The HBM-windowed c2 sweeps (the long-horizon fallback past the
-    fused VMEM envelope, ipm_fast `windowed=True`) vs the in-VMEM fused
-    path: identical Riccati algebra split into separate backward/forward
-    launches, so the IPM trajectories must agree to f32 rounding — with
-    and without Gondzio correctors (both corrector call sites)."""
-    keys = jax.random.split(jax.random.PRNGKey(13), B)
-    qps = []
-    for k in keys:
-        diag, dense = random_diag_lq(k)
-        _, du_ref = riccati.solve_lq(
-            A=dense["A"], B=dense["B"], c=dense["c"], Qxx=dense["Qxx"],
-            qx=dense["qx"], Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-            P_term=dense["P_term"], p_term=dense["p_term"],
-            dx0=dense["dx0"])
-        lim = 0.5 * float(jnp.max(jnp.abs(du_ref)))
-        qps.append(QPData(A=dense["A"], B=dense["B"], c=dense["c"],
-                          Qxx=dense["Qxx"], qx=dense["qx"],
-                          Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-                          P=dense["P_term"], p=dense["p_term"],
-                          lb=jnp.full((N, NUD), -lim),
-                          ub=jnp.full((N, NUD), lim), dx0=dense["dx0"]))
-    batched = jax.tree.map(
-        lambda *xs: jnp.stack(xs).astype(jnp.float32), *qps)
-
-    for cfg in (ipm.IPMConfig(iters=8),
-                ipm.IPMConfig(iters=5, gondzio_correctors=1)):
-        base = ipm_fast.solve_batched(ipm_fast.from_qpdata(batched), cfg,
-                                      condense=2, **KERN)
-        win = ipm_fast.solve_batched(ipm_fast.from_qpdata(batched), cfg,
-                                     condense=2, windowed=True, **KERN)
-        assert int(win.stats["c2_windowed"]) == 1
-        assert int(base.stats["c2_windowed"]) == 0
-        np.testing.assert_allclose(np.asarray(win.du),
-                                   np.asarray(base.du),
-                                   rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(np.asarray(win.dx),
-                                   np.asarray(base.dx),
-                                   rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(np.asarray(win.lam_l),
-                                   np.asarray(base.lam_l),
-                                   rtol=2e-5, atol=2e-5)
-
-
-def _bounded_qp_batch(seed=8):
-    keys = jax.random.split(jax.random.PRNGKey(seed), B)
-    qps = []
-    for k in keys:
-        diag, dense = random_diag_lq(k)
-        _, du_ref = riccati.solve_lq(
-            A=dense["A"], B=dense["B"], c=dense["c"], Qxx=dense["Qxx"],
-            qx=dense["qx"], Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-            P_term=dense["P_term"], p_term=dense["p_term"],
-            dx0=dense["dx0"])
-        lim = 0.5 * float(jnp.max(jnp.abs(du_ref)))
-        qps.append(QPData(A=dense["A"], B=dense["B"], c=dense["c"],
-                          Qxx=dense["Qxx"], qx=dense["qx"],
-                          Ruu=dense["Ruu"], ru=dense["ru"], S=dense["S"],
-                          P=dense["P_term"], p=dense["p_term"],
-                          lb=jnp.full((N, NUD), -lim),
-                          ub=jnp.full((N, NUD), lim), dx0=dense["dx0"]))
-    return jax.tree.map(
-        lambda *xs: jnp.stack(xs).astype(jnp.float32), *qps)
-
-
-def test_compressed_streams_bounded_accuracy():
-    """bf16 compressed HBM streams (IPMConfig.compress_gains/compress_ab;
-    ops/pallas/condensed_kernels.py module note): interpret-mode run on
-    bounded QPs — solutions stay finite and within the bf16-perturbation
-    scale of the uncompressed path, and stats record which compressions
-    were active.  Accuracy ADJUDICATION (oracle certification + flight
-    divergence on the real compiled kernels) is hardware-side:
-    tools/compress_streams.py; tables in docs/PERF.md."""
-    batched = _bounded_qp_batch()
-    qp = ipm_fast.from_qpdata(batched)
-    base = ipm_fast.solve_batched(qp, ipm.IPMConfig(iters=8),
-                                  condense=2, **KERN)
-    scale = float(jnp.max(jnp.abs(base.du)))
-    for kw, g, a in ((dict(compress_gains=True), 1, 0),
-                     (dict(compress_ab=True), 0, 1),
-                     (dict(compress_gains=True, compress_ab=True), 1, 1)):
-        sol = ipm_fast.solve_batched(qp, ipm.IPMConfig(iters=8, **kw),
-                                     condense=2, **KERN)
-        assert int(sol.stats["c2_compress_gains"]) == g
-        assert int(sol.stats["c2_compress_ab"]) == a
-        du = np.asarray(sol.du)
-        assert np.isfinite(du).all()
-        rel = np.abs(du - np.asarray(base.du)).max() / scale
-        # bf16 streams perturb the solve at ~2^-8-per-entry scale; a few
-        # percent relative after 8 iterations is the measured envelope
-        # (order-of-magnitude guard, not an accuracy claim)
-        assert rel < 5e-2, rel
-        # uncompressed carries/multipliers stay exactly representable
-        assert sol.lam_l.dtype == base.lam_l.dtype
-
-
-def test_compressed_streams_guards():
-    """Compression is in-VMEM-fused-path-only: the windowed kernels drop
-    it (with a warning + stats flag 0), fused_iter raises."""
-    import warnings as _w
-
-    batched = _bounded_qp_batch(seed=9)
-    qp = ipm_fast.from_qpdata(batched)
-    cfg = ipm.IPMConfig(iters=2, compress_gains=True, compress_ab=True)
-    with _w.catch_warnings(record=True) as rec:
-        _w.simplefilter("always")
-        sol = ipm_fast.solve_batched(qp, cfg, condense=2, windowed=True,
-                                     **KERN)
-    assert int(sol.stats["c2_compress_gains"]) == 0
-    assert int(sol.stats["c2_compress_ab"]) == 0
-    assert any("compress" in str(w.message) for w in rec)
-    with pytest.raises(ValueError, match="fused_iter"):
-        ipm_fast.solve_batched(qp, cfg, condense=2, fused_iter=True,
-                               **KERN)

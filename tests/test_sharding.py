@@ -1,7 +1,6 @@
 """Multi-device sharding tests on the virtual 8-CPU-device mesh."""
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -85,8 +84,8 @@ def test_stage_sharded_rti_matches_local(n_stage, block):
 
 
 def test_pod_rti_step_fused_path_matches_local():
-    """Pod serving path: shard_map over the batch axis with the fused
-    Pallas kernels per device == the unsharded batched step."""
+    """Pod serving path: shard_map over the batch axis with the batched
+    RTI step per device == the unsharded batched step."""
     from crazyflie_nmpc_tpu.parallel.pod import fleet_metrics, pod_rti_step
     from crazyflie_nmpc_tpu.solver.rti_batched import rti_step_batched
 
@@ -101,13 +100,11 @@ def test_pod_rti_step_fused_path_matches_local():
                                    jnp.float32) for i in range(B)])
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
 
-    step = pod_rti_step(spec, mesh, CFG, block_b=2, stages_per_step=5,
-                        interpret=True)
+    step = pod_rti_step(spec, mesh, CFG)
     new_states, outs = step(states, x0s, yref, yref_e)
 
     ref_states, ref_outs = rti_step_batched(
-        spec, states, x0s, yref, yref_e, CFG, block_b=2,
-        stages_per_step=5, interpret=True)
+        spec, states, x0s, yref, yref_e, CFG)
     # f32 + different XLA fusion orders (shard_map vs plain) -> ~1e-4
     # relative noise, amplified by the IPM's conditioning near active bounds
     np.testing.assert_allclose(np.asarray(outs.u0), np.asarray(ref_outs.u0),
@@ -123,10 +120,8 @@ def test_pod_rti_step_fused_path_matches_local():
 
 
 def test_stage_sharded_long_horizon_past_fused_envelope():
-    """N=400 is past the fused condensed kernels' VMEM envelope
-    (ipm_fast raises, test_pallas_kernels.py::test_c2_vmem_clamp_envelope);
-    the stage-sharded path is the prescribed fallback and must agree with
-    the plain single-device RTI step at that horizon."""
+    """At N=400 the stage-sharded path (the horizon split over 4 stage
+    devices) must agree with the plain single-device RTI step."""
     from jax import shard_map
 
     spec = default_ocp(N=400, tf=6.0, dtype=jnp.float64)
@@ -152,21 +147,19 @@ def test_stage_sharded_long_horizon_past_fused_envelope():
 
 
 def test_stage_sharded_composes_with_windowed_long_horizon():
-    """VERDICT r4 item 5: the two long-horizon mechanisms — the stage-
-    SHARDED XLA path (horizon split over 4 stage devices with all_gather
-    reduction) and the single-device HBM-WINDOWED Pallas kernels
-    (ipm_fast windowed=True, the auto-selected path past the VMEM
-    envelope) — must produce the same RTI step at N=800.  This is the
-    composition the pod design relies on: a horizon too long for one
-    device's VMEM either shards across the stage axis or windows through
-    HBM, and both express the identical Riccati algebra."""
+    """The two long-horizon mechanisms — the stage-SHARDED XLA path
+    (horizon split over 4 stage devices with all_gather reduction) and
+    the single-device batched step (block-2 condensing, batch-last
+    sweeps, whose gains live in device memory at any N) — must produce
+    the same RTI step at N=800: both express the identical Riccati
+    algebra."""
     from jax import shard_map
 
     from crazyflie_nmpc_tpu.solver.rti_batched import rti_step_batched
 
     N = 800
     spec = default_ocp(N=N, tf=12.0, dtype=jnp.float32)
-    cfg = ipm.IPMConfig(iters=2)   # interpret-mode Pallas is Python-per-op
+    cfg = ipm.IPMConfig(iters=2)
     yref, yref_e = hover_yref(spec)
     x0 = hover_state(spec.params, pos=(0.2, -0.1, 0.4), dtype=jnp.float32)
     state = init_rti(spec, x0)
@@ -185,52 +178,41 @@ def test_stage_sharded_composes_with_windowed_long_horizon():
     states_b = jax.tree.map(lambda a: a[None], state)
     win_state, _ = rti_step_batched(
         spec, states_b, x0[None], yref[None], yref_e[None], cfg,
-        block_b=1, stages_per_step=10, interpret=True, condense=2,
-        windowed=True)
+        condense=2)
 
     du = np.abs(np.asarray(win_state.u_traj[0])
                 - np.asarray(sharded_state.u_traj))
-    assert du.max() < 5e-4, du.max()   # f32 kernel vs f32 XLA rounding
+    assert du.max() < 5e-4, du.max()   # two f32 algebra orders
     dx = np.abs(np.asarray(win_state.x_traj[0])
                 - np.asarray(sharded_state.x_traj))
     assert dx.max() < 5e-4, dx.max()
 
 
-@pytest.mark.skipif(
-    os.environ.get("RUN_PRODUCTION_FUSED") != "1",
-    reason="opt-in (~4-8 min interpret-mode budget): "
-           "RUN_PRODUCTION_FUSED=1 python -m pytest "
-           "tests/test_sharding.py::test_pod_fused_production_depth")
-def test_pod_fused_production_depth():
-    """VERDICT r4 item 6: the PRODUCTION point — N=50, iters=8, fused
-    Pallas kernels, multi-device — exercised with a parity assertion
-    against the unsharded batched step.  The default-suite pod test runs
-    full depth only at N=10 and the dryrun runs N=50 at iters=2; this
-    closes the gap at full production depth (interpret-mode kernels on
-    the virtual 8-mesh — Python-per-op, hence opt-in)."""
+@pytest.mark.gpu
+def test_pod_fused_production_depth(gpu_devices):
+    """The PRODUCTION point — N=50, iters=8, the sweep kernel, every card
+    of the host as one batch mesh — with a parity assertion against the
+    unsharded batched step.  Runs on a GPU host only (`pytest -m gpu`)."""
     from crazyflie_nmpc_tpu.parallel.pod import pod_rti_step
     from crazyflie_nmpc_tpu.solver.rti_batched import rti_step_batched
 
     spec = default_ocp(N=50, dtype=jnp.float32)
     cfg = ipm.IPMConfig(iters=8)
-    mesh = make_mesh(batch=8, stage=1)
+    n = len(gpu_devices)
+    mesh = make_mesh(batch=n, stage=1, devices=gpu_devices)
     yref, yref_e = hover_yref(spec)
-    B = 8
-    key = jax.random.PRNGKey(11)
-    x0s = jnp.stack([
-        hover_state(spec.params, dtype=jnp.float32)
-        + 0.05 * jax.random.normal(jax.random.fold_in(key, i), (NX,),
-                                   jnp.float32) for i in range(B)])
+    B = 256 * n
+    x0s = (hover_state(spec.params, dtype=jnp.float32)[None, :]
+           + 0.05 * jax.random.normal(jax.random.PRNGKey(11), (B, NX),
+                                      jnp.float32))
     x0s = x0s.at[:, 0].add(0.3)        # saturating transient, every lane
     states = jax.vmap(lambda x: init_rti(spec, x))(x0s)
 
-    step = pod_rti_step(spec, mesh, cfg, block_b=1, stages_per_step=5,
-                        interpret=True)
+    step = pod_rti_step(spec, mesh, cfg)
     pod_states, pod_outs = step(states, x0s, yref, yref_e)
 
-    ref_states, ref_outs = rti_step_batched(
-        spec, states, x0s, yref, yref_e, cfg, block_b=1,
-        stages_per_step=5, interpret=True)
+    ref_states, ref_outs = jax.jit(lambda s, x: rti_step_batched(
+        spec, s, x, yref, yref_e, cfg))(states, x0s)
     np.testing.assert_allclose(np.asarray(pod_outs.u0),
                                np.asarray(ref_outs.u0),
                                rtol=1e-3, atol=1e-3)

@@ -2,7 +2,7 @@
 
 VERDICT r4 item 3: the reference's defining multi-drone server — N
 Crazyflies, one thread + NMPC node each (crazyflie_server.cpp:155,
-1108-1131, multi_hover_*.launch) — re-expressed TPU-natively as a single
+1108-1131, multi_hover_*.launch) — re-expressed as a single
 `rti_step_batched` launch whose batch axis is the vehicle axis, with
 telemetry returning into a batched estimator and per-vehicle cmd_vel +
 deadline accounting through the native link (runtime/swarm.py).
@@ -108,11 +108,10 @@ def test_swarm_converges_over_wire():
 
 
 def test_swarm_fused_path_matches_vmap():
-    """The FUSED swarm step (interpret-mode Pallas kernels, batch-last
-    layout, per-lane yref padding) produces the same commands as the
-    vmap path on identical telemetry — the wiring bench.py's TPU swarm
-    row rides, pinned without hardware (B=5 pads to 8 lanes, so the
-    padding/slicing seam is exercised too)."""
+    """The batched swarm step (rti_step_batched, batch-last layout,
+    per-lane yref) produces the same commands as the vmap path on
+    identical telemetry — the wiring bench.py's swarm row rides, pinned
+    without hardware."""
     import jax
     import jax.numpy as jnp
 
@@ -124,7 +123,7 @@ def test_swarm_fused_path_matches_vmap():
     bringup._jax_cpu()
     spec = default_ocp(dtype=jnp.float32)
     targets = grid_targets(5, spacing=0.5, z=0.4)
-    cfg = IPMConfig(iters=2)      # interpret-mode Pallas is Python-per-op
+    cfg = IPMConfig(iters=2)
 
     key = jax.random.PRNGKey(7)
     x0s = np.asarray(
@@ -138,8 +137,7 @@ def test_swarm_fused_path_matches_vmap():
         jax.random.fold_in(key, 2), (5, 3), jnp.float32), np.float64)
 
     cmds = {}
-    for label, kw in (("fused", dict(use_fused=True, block_b=8,
-                                     stages_per_step=5, interpret=True)),
+    for label, kw in (("fused", dict(use_fused=True)),
                       ("vmap", dict(use_fused=False))):
         sw = SwarmNMPC(spec, targets, ipm_config=cfg, **kw)
         sw.reset(x0s)

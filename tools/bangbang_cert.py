@@ -1,6 +1,6 @@
 """Bang-bang-regime certification vs the exact active-set oracle.
 
-docs/PERF.md (round 2) reported that on fully saturated ticks (1.5 m
+An earlier study reported that on fully saturated ticks (1.5 m
 setpoint jump; ~104/150 ticks with most inputs at a bound) ALL iteration
 budgets disagree with a 30-iteration self-reference by the full control
 range, and attributed it to "active-set flips, not solver accuracy" —
@@ -19,7 +19,7 @@ solver config:
 Configs: default Mehrotra-8, 8+escalate16, 8+escalate32.
 
 Run (CPU, f64): python tools/bangbang_cert.py [--steps 150 --jump 1.5]
-Results land in docs/PERF.md "Bang-bang regime, adjudicated".
+Prints one row per config.
 """
 
 import argparse

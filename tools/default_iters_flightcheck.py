@@ -12,7 +12,7 @@ per-tick position divergence, settling time, and closed-loop LQ cost —
 not per-solve u0 error.
 
 Usage: PYTHONPATH=. python tools/default_iters_flightcheck.py
-Writes the table docs/PERF.md cites next to the bang-bang table.
+Prints a summary table of both transients.
 """
 
 import jax
@@ -94,7 +94,7 @@ def run(jump: float, steps: int = 400):
 
 def main():
     rows = [run(0.5), run(1.5)]
-    print("\nSummary (for docs/PERF.md):")
+    print("\nSummary:")
     print("| transient | max u0 div [kRPM] | max traj div [m] | "
           "final div [m] | settling (8 vs esc32) | LQ cost rel diff |")
     print("|---|---|---|---|---|---|")

@@ -15,7 +15,7 @@ envelope over
   * the physical split of the round trip between measurement staleness
     and actuation pipe (meas_delay_steps).
 
-Findings (docs/PERF.md "The 60 ms cmd_vel flight configuration"):
+Findings:
 the rotor-level predictor is unstable at >= 45 ms across the WHOLE gain
 grid (0/81 at d=3, 0/72 at d=4, any split) — the D/lag hypothesis is
 refuted; the cascade-model predictor closes 60 ms (and 90 ms) at
